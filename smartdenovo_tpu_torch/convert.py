@@ -1,11 +1,16 @@
-"""Carry the JAX package's overlap state across to the port and back.
+"""Carry the JAX package's overlap and consensus state across to the port.
 
 The state of the overlapper is the two `FlatSeeds` (k16 candidate seeds,
 z10 matcher seeds) and the `DeviceIndexes`.  Given as numpy arrays (for
 example `np.asarray` of each field of the JAX NamedTuples), `state_to_torch`
 returns the port's tensors on a device, so a test can feed the identical
 index to both packages.  uint32 k-mer codes become int64 (ops/seeds.py);
-every other field keeps its dtype."""
+every other field keeps its dtype.
+
+The state of the consensus segment engine is `_SegState` (the read bank
+flattened, its offsets and lengths, one column map per read): host numpy
+in both packages, so `seg_state_to_torch` only copies it into the port's
+class."""
 
 from __future__ import annotations
 
@@ -49,3 +54,17 @@ def state_to_numpy(k16, z10, didx):
         return {f: _to_numpy(f, getattr(src, f)) for f in src._fields}
 
     return conv(k16), conv(z10), conv(didx)
+
+
+def seg_state_to_torch(flat, flat_offs, lens, colmap16):
+    """The JAX package's `_SegState` fields as numpy arrays (colmap16: a
+    list of int arrays or None per read) -> the port's `_SegState`."""
+    from .pipeline.cns import _SegState
+
+    st = _SegState.__new__(_SegState)
+    st.flat = np.array(flat, np.uint8)
+    st.flat_offs = np.array(flat_offs, np.int64)
+    st.lens = np.array(lens, np.int64)
+    st.colmap16 = [None if c is None else np.array(c, np.int64)
+                   for c in colmap16]
+    return st

@@ -1,10 +1,12 @@
 """Build the CUDA kernels of ``csrc/`` with nvcc and bind them with ctypes.
 
-All ``csrc/*.cu`` files compile into one shared library with a plain C
-interface, for Hopper (``sm_90a``).  The library is built at the first
-CUDA launch into ``smartdenovo_tpu_torch/_build/`` (listed in
-.gitignore), under a name keyed by a hash of the sources and flags, so a
-fresh checkout builds it once and an edited source rebuilds it.
+Each ``csrc/*.cu`` file compiles to an object of its own, all of them at
+once (one nvcc process per source), and the objects link into one shared
+library with a plain C interface, for Hopper (``sm_90a``).  The library
+is built at the first CUDA launch into ``smartdenovo_tpu_torch/_build/``
+(listed in .gitignore), under a name keyed by a hash of the sources and
+flags, so a fresh checkout builds it once and an edited source rebuilds
+it.
 
 Each C entry point takes device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launches;
@@ -28,9 +30,9 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
-LAUNCHES = {"sseg": 0, "jpost": 0, "pexpand": 0}
+LAUNCHES = {"sseg": 0, "jpost": 0, "pexpand": 0, "segdp": 0}
 TILE = 1024   # entries per block of the streaming kernels (csrc/common.cuh)
 
 _P = ctypes.c_void_p
@@ -44,6 +46,9 @@ _SIGNATURES = {
     "jpost_join_emitters": [_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P],
     # cum, pay, aux, base, NE, pair_budget, out, stream
     "pexpand_expand_emit": [_P, _P, _P, _P, _I64, _I64, _P, _P],
+    # a, b, alen, blen, b16, Bc, SEGR, LBW, NB, W, T, match, mismatch,
+    # open_i, open_d, ext, dirs, score, b_beg, b_end, mvp, stream
+    "segdp_align_tb": [_P, _P, _P, _P, _P] + [_I32] * 11 + [_P] * 6,
 }
 
 
@@ -78,13 +83,29 @@ def build() -> tuple[Path, float]:
     if so.exists():
         return so, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(so.name + f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    tag = f".{os.getpid()}.tmp"
+    tmp = so.with_name(so.name + tag)
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / (s.stem + tag + ".o") for s in srcs]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for s, o in zip(srcs, objs)]
+    errs = []
+    for s, pr in zip(srcs, procs):
+        _out, err = pr.communicate()
+        if pr.returncode != 0:
+            errs.append(f"{s.name} ({pr.returncode}):\n{err}")
+    if not errs:
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True, text=True)
+        if res.returncode != 0:
+            errs.append(f"link ({res.returncode}):\n{res.stderr}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if errs:
+        raise RuntimeError("nvcc failed: " + "\n".join(errs))
     os.replace(tmp, so)
     return so, time.perf_counter() - t0
 

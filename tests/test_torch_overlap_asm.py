@@ -22,6 +22,7 @@ from smartdenovo_tpu.pipeline.pre import preprocess
 from smartdenovo_tpu.utils.simulate import (random_genome, simulate_reads,
                                             write_sim_fasta)
 from smartdenovo_tpu_torch import cli
+from smartdenovo_tpu_torch.pipeline import cns as tcns
 from smartdenovo_tpu_torch.pipeline import driver as tdriver
 from smartdenovo_tpu_torch.pipeline import zmo as tzmo
 
@@ -141,7 +142,8 @@ def test_port_imports_no_jax():
         "import smartdenovo_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "mods += ['chip_smoke', 'smartdenovo_tpu.pipeline.pre',\n"
-        "         'smartdenovo_tpu.io.fasta', 'smartdenovo_tpu.utils.simulate']\n"
+        "         'smartdenovo_tpu.io.fasta', 'smartdenovo_tpu.utils.simulate',\n"
+        "         'smartdenovo_tpu.utils.native']\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "assert 'smartdenovo_tpu_torch.cli' in sys.modules\n"
@@ -160,10 +162,19 @@ def test_unported_paths_raise(bank, tmp_path):
             tzmo.overlap_dmo(bank, tzmo.ZmoParams.dmo(**kw), device="cpu")
     fa = str(tmp_path / "r.fa")
     write_sim_fasta(fa, bank.names[:3], [bank.get(i) for i in range(3)])
-    for argv in (["asm", fa, "-c", "1"], ["asm", fa, "-e", "zmo"],
-                 ["cns", "-i", "x.lay"]):
+    for argv in (["asm", fa, "-e", "zmo"], ["cns", "-i", "x.lay", "-a", "x.aln"],
+                 ["cns", "-i", "x.lay", "-V", "2.05"]):
         with pytest.raises(NotImplementedError):
-            cli.main(argv + (["--device", "cpu"] if argv[0] == "asm" else []))
+            cli.main(argv + ["--device", "cpu"])
+    # the whole-read consensus engine: f5q units and seg_engine=False
+    reads = [bank.get(i) for i in range(4)]
+    quals = [np.zeros((7, len(r)), np.uint8) for r in reads]
+    for unit, p in ((tcns.LayUnitig("u", reads, [0] * 4, [True] * 4,
+                                    quals=quals), tcns.CnsParams()),
+                    (tcns.LayUnitig("u", reads, [0] * 4, [True] * 4),
+                     tcns.CnsParams(seg_engine=False))):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            tcns.consensus_unitig(unit, p, device="cpu")
 
 
 def test_cuda_device_without_gpu_raises(bank):
