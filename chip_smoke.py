@@ -12,7 +12,10 @@ non-zero:
             (segdp) on seeded inputs at the widths the main path gives them,
             each held equal to its plain PyTorch version on the same inputs
             (integer outputs: the tolerance is 0), with median CUDA-event
-            times of both
+            times of both, each kernel's bound (bytes over HBM or int32
+            operations over the int32 rate) and its share of it, and for K3
+            the time of torch.repeat_interleave; segdp must run Bc = 1024
+            segments in one wave
 4. join     the overlapper with the sort-join matcher on a deep 25 kb
             simulation, on cuda and on cpu: the overlap lists must be
             equal record for record, and K2 and K3 must have launched
@@ -59,6 +62,13 @@ COVERAGE = 18
 CNS_CUT = 2_000_000         # bp of the E. coli layout that phase 6 (c) polishes
 GOLD = os.path.join(ROOT, "tests", "goldens")
 I32_MAX = (1 << 31) - 1
+# H100 SXM peaks for a kernel's bound: HBM3 at 3.35 TB/s (NVIDIA's data
+# sheet); int32 at 132 SMs x 64 int32 lanes x 1.98 GHz boost.  A bound is
+# the larger of bytes / HBM and operations / int32 rate, with every input
+# read once and every output written once.
+HBM_BPS = 3.35e12
+INT32_OPS = 132 * 64 * 1.98e9
+SEGDP_OPS_PER_CELL = 12   # int32 operations of one DP cell, at the least
 
 
 def say(msg):
@@ -91,6 +101,19 @@ def cuda_ms(fn, reps=10):
     return statistics.median(times)
 
 
+def bound(nbytes, ops=0):
+    """(bound_ms, bound_by) of work that moves nbytes and does ops int32
+    operations."""
+    tb, to = nbytes / HBM_BPS * 1e3, ops / INT32_OPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def timing(ms, plain_ms, nbytes, ops=0, library_ms=None):
+    bms, by = bound(nbytes, ops)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                share=bms / ms, library_ms=library_ms)
+
+
 def max_abs(a, b):
     import torch
 
@@ -108,6 +131,8 @@ def _block_stream(gen, N, dev):
     """A match stream shaped like dot_matrix_align's block phase: sorted,
     blocks of a few to a few hundred entries, and a dead tail of 40%."""
     import torch
+
+    from smartdenovo_tpu_torch.ops import sseg
 
     live_n = N * 6 // 10
     live = torch.arange(N, device=dev) < live_n
@@ -130,14 +155,15 @@ def _block_stream(gen, N, dev):
         torch.where(live, o1 + l1, z),
         torch.where(live, o2 + l2, z),
         pid, live.to(torch.int32), z]).contiguous()
-    ops = ("sum", "min", "min", "max", "max", "first", "sum", "first")
-    return starts.to(torch.int32), v8, ops, N // 8
+    return starts.to(torch.int32), v8, sseg.BLOCK_OPS, N // 8
 
 
 def _cand_stream(gen, N, dev):
     """An event stream shaped like scan_candidates' group reduce: sorted
     (q, cand, dir) keys in runs, a dead tail of INT32_MAX keys."""
     import torch
+
+    from smartdenovo_tpu_torch.ops import sseg
 
     live_n = N * 7 // 10
     kq = torch.sort(torch.randint(0, N // 16, (N,), generator=gen,
@@ -150,8 +176,7 @@ def _cand_stream(gen, N, dev):
                                         dtype=torch.int32), 0)
     z = torch.zeros(N, dtype=torch.int32, device=dev)
     v8 = torch.stack([contrib, kq, z, z, z, z, z, z]).contiguous()
-    ops = ("sum",) + ("first",) * 7
-    return seg_new, v8, ops, N // 4
+    return seg_new, v8, sseg.CAND_OPS, N // 4
 
 
 def _join_stream(gen, N, dev):
@@ -185,14 +210,20 @@ def _join_stream(gen, N, dev):
 def phase_kernels(dev):
     import torch
 
+    from smartdenovo_tpu_torch.kernels import _build
     from smartdenovo_tpu_torch.ops import jpost, pexpand, sseg
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     results = {}
 
-    # K1: the candidate scan at 2^22, the block phase at 2^24
-    errs, t = [], None
+    # every lane-op set of the main path runs a specialised K1
+    for ops in sseg.MAIN_PATH_OPS:
+        if not _build.lib().sseg_specialized(sseg.opcode(ops)):
+            raise AssertionError(f"K1 has no specialised build for {ops}")
+
+    # K1: the candidate scan at 2^22, the block phase at 2^24 (reported)
+    errs, shapes = [], []
     for N, make in ((1 << 22, _cand_stream), (1 << 24, _block_stream)):
         seg_new, v8, ops, ob = make(gen, N, dev)
         out, cnt = sseg.seg_reduce_compact(seg_new, v8, ops=ops, out_budget=ob)
@@ -208,11 +239,13 @@ def phase_kernels(dev):
                                                      out_budget=ob))
         pms = cuda_ms(lambda: sseg.seg_reduce_compact_plain(
             seg_new, v8, ops=ops, out_budget=ob))
+        t = timing(ms, pms, 36 * N + 32 * n + 4)
         say(f"kernel sseg N={N} segments={int(cnt)}: {ms:.3f} ms, "
-            f"plain {pms:.3f} ms, equal")
-        t = (ms, pms)
+            f"plain {pms:.3f} ms, bound {t['bound_ms']:.3f} ms "
+            f"({t['bound_by']}), share {t['share']:.3f}, equal")
+        shapes.append(dict(t, N=N))
         del seg_new, v8, out, pout
-    results["sseg"] = dict(max_abs_err=max(errs), ms=t[0], plain_ms=t[1])
+    results["sseg"] = dict(shapes[-1], max_abs_err=max(errs), shapes=shapes)
 
     # K2 on a join stream of 2^23, out budget 2^23 (EB = pair_budget)
     N = 1 << 23
@@ -235,9 +268,11 @@ def phase_kernels(dev):
                                              out_budget=EB))
     pms = cuda_ms(lambda: jpost.join_emitters_plain(
         key, pay, aux, max_per_read=16, out_budget=EB))
+    t = timing(ms, pms, 12 * N + 16 * n + 8)
     say(f"kernel jpost N={N} emitters={int(nem)} slots={int(tot)}: "
-        f"{ms:.3f} ms, plain {pms:.3f} ms, equal")
-    results["jpost"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+        f"{ms:.3f} ms, plain {pms:.3f} ms, bound {t['bound_ms']:.3f} ms "
+        f"({t['bound_by']}), share {t['share']:.3f}, equal")
+    results["jpost"] = dict(t, max_abs_err=err)
 
     # K3 on K2's emitters, pair budget 2^23
     PB = 1 << 23
@@ -252,9 +287,25 @@ def phase_kernels(dev):
     err = max(max_abs(a, b) for a, b in zip(got, ref))
     ms = cuda_ms(lambda: pexpand.expand_emit(*args, pair_budget=PB))
     pms = cuda_ms(lambda: pexpand.expand_emit_plain(*args, pair_budget=PB))
-    say(f"kernel pexpand PB={PB} slots={int(cnt_c.sum())}: {ms:.3f} ms, "
-        f"plain {pms:.3f} ms, equal")
-    results["pexpand"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    # the one PyTorch call of the same function (without the padding to
+    # PB), timed here only: the port never calls it
+    slots = int(cnt_c.sum())
+    pay3 = torch.stack(args[1:])
+    lib = torch.repeat_interleave(pay3, cnt_c, dim=1, output_size=slots)
+    if not all(torch.equal(g[:slots], r) for g, r in zip(got, lib)):
+        raise AssertionError("repeat_interleave differs from K3")
+    lms = cuda_ms(lambda: torch.repeat_interleave(pay3, cnt_c, dim=1,
+                                                  output_size=slots))
+    # the cumsum is read over all EB emitters, the three payloads only for
+    # the emitters that own a slot, and the three outputs written over PB
+    owners = int((cnt_c > 0).sum())
+    t = timing(ms, pms, 4 * EB + 12 * owners + 12 * PB, library_ms=lms)
+    say(f"kernel pexpand PB={PB} slots={slots} owners={owners}: {ms:.3f} ms, "
+        f"plain {pms:.3f} ms, repeat_interleave {lms:.3f} ms, bound "
+        f"{t['bound_ms']:.3f} ms ({t['bound_by']}), share "
+        f"{t['share']:.3f}, equal")
+    results["pexpand"] = dict(t, max_abs_err=err)
+    del pay3, lib
     del key, pay, aux, eout, pout, cnt_c, args, got, ref
     results["segdp"] = phase_segdp(dev)
     return results
@@ -301,6 +352,16 @@ def phase_segdp(dev):
     args = [torch.from_numpy(x).to(dev) for x in _segments(
         np.random.default_rng(2024), Bc, cns.SEGR, cns.S_LBW, cns.S_W)]
     live = int((args[2] > 0).sum())
+    NB = args[4].shape[1]
+    cells = int(args[2].sum()) * cns.S_W
+    nbytes = Bc * (cns.SEGR + cns.S_LBW + 2 * NB + 8) + Bc * (12 + cns.S_T // 4)
+    wpb, per_sm = segdp.launch_shape(cns.SEGR, cns.S_LBW, cns.S_W)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    waves = -(-Bc // (wpb * per_sm * sms))
+    say(f"kernel segdp launch: {wpb} segments a block, {per_sm} block(s) an "
+        f"SM, {sms} SMs: {waves} wave(s) at Bc={Bc}; {cells} cells")
+    if waves != 1:
+        raise AssertionError(f"segdp at Bc={Bc} takes {waves} waves")
     errs, t = [], None
     for oi, od in ((-3, -3), (-2, -3)):
         kw = dict(shape, open_i=oi, open_d=od)
@@ -313,11 +374,12 @@ def phase_segdp(dev):
         errs.append(max(max_abs(g, r) for g, r in zip(got, ref)))
         ms = cuda_ms(lambda: segdp.seg_align_tb(*args, **kw))
         pms = cuda_ms(lambda: segdp.seg_align_tb_plain(*args, **kw), reps=3)
+        t = timing(ms, pms, nbytes, SEGDP_OPS_PER_CELL * cells)
         say(f"kernel segdp Bc={Bc} ({live} segments with rows) open_i={oi} "
-            f"open_d={od}: {ms:.3f} ms, plain {pms:.3f} ms, equal "
-            f"(score, b_beg, b_end, moves)")
-        t = (ms, pms)
-    return dict(max_abs_err=max(errs), ms=t[0], plain_ms=t[1])
+            f"open_d={od}: {ms:.3f} ms, plain {pms:.3f} ms, bound "
+            f"{t['bound_ms']:.3f} ms ({t['bound_by']}), share "
+            f"{t['share']:.3f}, equal (score, b_beg, b_end, moves)")
+    return dict(t, max_abs_err=max(errs))
 
 
 # ---------------------------------------------------------------------------
@@ -329,8 +391,8 @@ def phase_join():
     import numpy as np
     import torch
 
-    from smartdenovo_tpu.data.readbank import ReadBank
-    from smartdenovo_tpu.utils.simulate import random_genome, simulate_reads
+    from smartdenovo_tpu_torch.data.readbank import ReadBank
+    from smartdenovo_tpu_torch.utils.simulate import random_genome, simulate_reads
     from smartdenovo_tpu_torch.kernels import _build
     from smartdenovo_tpu_torch.pipeline.zmo import ZmoParams, overlap_dmo
 
@@ -380,7 +442,7 @@ def phase_asm(tmp):
     import numpy as np
     import torch
 
-    from smartdenovo_tpu.utils.simulate import (random_genome, simulate_reads,
+    from smartdenovo_tpu_torch.utils.simulate import (random_genome, simulate_reads,
                                                 write_sim_fasta)
     from smartdenovo_tpu_torch import cli
     from smartdenovo_tpu_torch.kernels import _build

@@ -14,7 +14,10 @@ module of the same name there and is held equal to it by the tests.
 - ``pipeline``  the overlap driver and the dmo ``asm`` driver
 - ``cli``       the ``asm`` and ``zmo`` subcommands
 
-Host code without JAX in it (read bank, FASTA I/O, wtpre, wtclp, wtlay,
-the simulator) is imported from `smartdenovo_tpu` as it is.  Nothing in
-this package imports jax.
+- ``data``, ``io``, ``graph``, ``utils``, ``pipeline/pre.py`` and
+  ``native/``: copies of the JAX package's host code (read bank, FASTA
+  I/O, wtpre, wtclp, wtlay, the native DAG and POA engines, the read
+  simulator), held equal to their sources by the tests.
+
+Nothing in this package imports jax or any module of `smartdenovo_tpu`.
 """

@@ -16,7 +16,7 @@ import argparse
 import sys
 import time
 
-from smartdenovo_tpu.utils.log import log
+from .utils.log import log
 
 # subcommands of sdtpu that the port does not run yet -> ROADMAP item
 _NOT_PORTED = dict.fromkeys(
@@ -86,7 +86,7 @@ def main(argv=None):
     resolve_device(args.device)   # fail before reading any input
 
     if args.cmd == "zmo":
-        from smartdenovo_tpu.data.readbank import ReadBank
+        from .data.readbank import ReadBank
 
         from .pipeline.zmo import ZmoParams, overlap_dmo, write_overlaps
 
@@ -107,9 +107,9 @@ def main(argv=None):
         if args.engine != "dmo":
             raise NotImplementedError(
                 "asm -e zmo is not ported yet (ROADMAP queue 1 item 9)")
-        from smartdenovo_tpu.data.readbank import ReadBank, decode_f5q, seq_to_codes
-        from smartdenovo_tpu.io.fasta import read_seqs_qual
-        from smartdenovo_tpu.pipeline.pre import preprocess
+        from .data.readbank import ReadBank, decode_f5q, seq_to_codes
+        from .io.fasta import read_seqs_qual
+        from .pipeline.pre import preprocess
 
         from .pipeline.driver import assemble_dmo, write_outputs
         from .pipeline.zmo import ZmoParams
@@ -159,7 +159,7 @@ def main(argv=None):
                       device=args.device)
         log("stage cns: %.3fs", time.time() - t0)
         if args.output == "-":
-            from smartdenovo_tpu.data.readbank import codes_to_seq
+            from .data.readbank import codes_to_seq
 
             for name, codes in res:
                 sys.stdout.write(f">{name} len={len(codes)}\n{codes_to_seq(codes)}\n")

@@ -33,15 +33,22 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {"sseg": 0, "jpost": 0, "pexpand": 0, "segdp": 0}
-TILE = 1024   # entries per block of the streaming kernels (csrc/common.cuh)
+TILE = 1024   # entries per block of K2 (csrc/common.cuh)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
-# C signatures: (name, argtypes); every entry point returns an int (cudaError_t)
+# C signatures: (name, argtypes); the entry points that launch return an
+# int (cudaError_t), the others a size or a flag
 _SIGNATURES = {
     # seg_new, v8, N, ops, out_budget, out, count, scratch, stream
     "sseg_reduce_compact": [_P, _P, _I64, _I32, _I32, _P, _P, _P, _P],
+    # N -> ints of scratch that sseg_reduce_compact needs
+    "sseg_scratch_ints": [_I64],
+    # -> entries a tile
+    "sseg_tile": [],
+    # ops -> 1 when that lane-op set is compiled with its ops known
+    "sseg_specialized": [_I32],
     # key, pay, aux, N, max_per_read, out_budget, out, totals, scratch, stream
     "jpost_join_emitters": [_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P],
     # cum, pay, aux, base, NE, pair_budget, out, stream
@@ -49,7 +56,10 @@ _SIGNATURES = {
     # a, b, alen, blen, b16, Bc, SEGR, LBW, NB, W, T, match, mismatch,
     # open_i, open_d, ext, dirs, score, b_beg, b_end, mvp, stream
     "segdp_align_tb": [_P, _P, _P, _P, _P] + [_I32] * 11 + [_P] * 6,
+    # SEGR, LBW, W, segments a block, blocks an SM
+    "segdp_occupancy": [_I32, _I32, _I32, _P, _P],
 }
+_RESTYPES = {"sseg_scratch_ints": _I64}   # the others return an int
 
 
 def _nvcc() -> str:
@@ -118,7 +128,7 @@ def lib() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(cdll, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, _I32)
     return cdll
 
 

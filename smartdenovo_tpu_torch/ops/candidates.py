@@ -15,7 +15,7 @@ import torch
 
 from .flatops import (arange32, cumsum32, expand_ranges, scatter_set,
                       shift_left, shift_right, sort_pairs)
-from .sseg import seg_reduce_compact
+from .sseg import CAND_OPS, seg_reduce_compact
 
 I32 = torch.int32
 INT32_MAX = 0x7FFFFFFF
@@ -114,9 +114,7 @@ def scan_candidates(qkmer, qoff, qspan, qvalid, qrids, qlens, qskip,
     out8, g_total = seg_reduce_compact(
         seg_new, torch.stack([contrib, torch.where(live, kq, INT32_MAX),
                               zz, zz, zz, zz, zz, zz]),
-        ops=("sum", "first", "first", "first", "first", "first", "first",
-             "first"),
-        out_budget=n_seg)
+        ops=CAND_OPS, out_budget=n_seg)
     gmask = arange32(n_seg, dev) < g_total
     seg_ol0 = torch.where(gmask, out8[0], 0)
     seg_kq = torch.where(gmask & (out8[1] != INT32_MAX), out8[1], INT32_MAX)

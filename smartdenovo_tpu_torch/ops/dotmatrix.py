@@ -21,7 +21,7 @@ from .flatops import (arange32, cumsum32, expand_ranges, lexsort_perm,
 from .flatseeds import RM_BLK
 from .jpost import join_emitters
 from .pexpand import expand_emit
-from .sseg import seg_reduce_compact
+from .sseg import BLOCK_OPS, DEFAULT_OPS, seg_reduce_compact
 
 I32 = torch.int32
 INT32_MAX = 0x7FFFFFFF
@@ -330,8 +330,7 @@ def dot_matrix_align(pairs: PairBatch, qlens_of_pair, clens_of_pair, *,
         torch.zeros_like(o1),
     ])
     out8, blk_total = seg_reduce_compact(
-        blk_new, v8, ops=("sum", "min", "min", "max", "max", "first", "sum",
-                          "first"), out_budget=nseg)
+        blk_new, v8, ops=BLOCK_OPS, out_budget=nseg)
     bmask = arange32(nseg, dev) < blk_total
     b_w = torch.where(bmask, out8[0], 0)
     b_beg0 = torch.where(bmask, out8[1], INT32_MAX)
@@ -389,7 +388,7 @@ def dot_matrix_align(pairs: PairBatch, qlens_of_pair, clens_of_pair, *,
             torch.where(hlive, he0, 0),
             torch.where(hlive, he1, 0),
             hpid, zw, zw]),
-        out_budget=nseg)
+        ops=DEFAULT_OPS, out_budget=nseg)
     wmask = arange32(nseg, dev) < wtot
     W_w = torch.where(wmask, outw[0], 0)
     W_b0 = torch.where(wmask, outw[1], INT32_MAX)

@@ -9,12 +9,15 @@ affine recurrence (E/F lanes open from the diagonal candidate, F strictly
 greater), semiglobal in b.
 
 `seg_align_tb` dispatches on the tensors' device: on CUDA it launches the
-hand-written kernel of csrc/segdp.cu (one block per segment, the row loop
-inside the block); on the CPU it runs `seg_align_tb_plain`, a row loop in
-PyTorch that follows the JAX scan step for step, int32 throughout.
+hand-written kernel of csrc/segdp.cu (one warp per segment, the row loop
+and the traceback inside the warp); on the CPU it runs
+`seg_align_tb_plain`, a row loop in PyTorch that follows the JAX scan step
+for step, int32 throughout.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -216,9 +219,9 @@ def _seg_align_cuda(seg_a, seg_b, seg_alen, seg_blen, seg_b16, *, SEGR, LBW,
         raise ValueError(f"seg_align_tb: bad shapes {tuple(seg_a.shape)} "
                          f"{tuple(seg_b.shape)} {tuple(seg_alen.shape)} "
                          f"{tuple(seg_blen.shape)} {tuple(seg_b16.shape)}")
-    if W % 32 or not 32 <= W <= 1024 or T % 4 or SEGR < 1 or LBW < 1:
-        raise ValueError(f"seg_align_tb: W={W} must be a multiple of 32 in "
-                         f"[32, 1024], T={T} a multiple of 4")
+    if W not in (32, 64, 128, 256) or T % 4 or SEGR < 1 or LBW < 1:
+        raise ValueError(f"seg_align_tb: W={W} must be 32, 64, 128 or 256, "
+                         f"T={T} a multiple of 4")
     if any(t.device != dev for t in (seg_b, seg_alen, seg_blen, seg_b16)):
         raise ValueError("seg_align_tb: inputs on different devices")
     seg_a, seg_b, seg_alen, seg_blen, seg_b16 = (
@@ -239,6 +242,17 @@ def _seg_align_cuda(seg_a, seg_b, seg_alen, seg_blen, seg_b16, *, SEGR, LBW,
         score.data_ptr(), b_beg.data_ptr(), b_end.data_ptr(), mvp.data_ptr(),
         _build.stream_of(seg_a)), "segdp_align_tb")
     return score, b_beg, b_end, mvp
+
+
+def launch_shape(SEGR: int, LBW: int, W: int = 256) -> tuple[int, int]:
+    """(segments a block, blocks an SM can hold) of the CUDA kernel at
+    these widths; a call of Bc segments runs in one wave when Bc <=
+    segments a block x blocks an SM x the card's SMs."""
+    wpb, per_sm = ctypes.c_int(), ctypes.c_int()
+    _build.check(_build.lib().segdp_occupancy(
+        SEGR, LBW, W, ctypes.addressof(wpb), ctypes.addressof(per_sm)),
+        "segdp_occupancy")
+    return wpb.value, per_sm.value
 
 
 def unpack_moves(mvp: np.ndarray) -> np.ndarray:

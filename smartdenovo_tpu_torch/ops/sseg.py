@@ -18,11 +18,25 @@ from ..kernels import _build
 I32_MAX = (1 << 31) - 1
 I32_MIN = -(1 << 31)
 _OPCODE = {"sum": 0, "min": 1, "max": 2, "first": 3}
+# The main path's lane-op sets.  csrc/sseg.cu compiles each of them with
+# its ops known (sseg_specialized); any other set reads its ops at run time
+# and runs slower.
+CAND_OPS = ("sum",) + ("first",) * 7          # candidate scan groups
+BLOCK_OPS = ("sum", "min", "min", "max", "max", "first", "sum", "first")
 DEFAULT_OPS = ("sum", "min", "min", "max", "max", "first", "first", "first")
+MAIN_PATH_OPS = (CAND_OPS, BLOCK_OPS, DEFAULT_OPS)  # DEFAULT_OPS: windows
 
 
 def _neutral(op: str) -> int:
     return {"sum": 0, "min": I32_MAX, "max": I32_MIN, "first": I32_MAX}[op]
+
+
+def opcode(ops) -> int:
+    """The lane ops packed 2 bits a lane, as the CUDA kernel takes them."""
+    code = 0
+    for lane, op in enumerate(ops):
+        code |= _OPCODE[op] << (2 * lane)
+    return code
 
 
 def seg_reduce_compact(seg_new: torch.Tensor, v8: torch.Tensor, *,
@@ -91,18 +105,16 @@ def _seg_reduce_cuda(seg_new, v8, ops, out_budget):
         raise ValueError("seg_reduce_compact: inputs on different devices")
     seg_new = seg_new.contiguous()
     v8 = v8.contiguous()
-    nt = (N + _build.TILE - 1) // _build.TILE
     dev = v8.device
+    lib = _build.lib()
     out = torch.empty((8, out_budget), dtype=torch.int32, device=dev)
     count = torch.empty(1, dtype=torch.int32, device=dev)
-    scratch = torch.empty(18 * nt, dtype=torch.int32, device=dev)
-    code = 0
-    for lane, op in enumerate(ops):
-        code |= _OPCODE[op] << (2 * lane)
-    lib = _build.lib()
+    # tile counter, tile status words, tile aggregates and prefixes
+    scratch = torch.empty(lib.sseg_scratch_ints(N), dtype=torch.int32,
+                          device=dev)
     _build.LAUNCHES["sseg"] += 1
     _build.check(lib.sseg_reduce_compact(
-        seg_new.data_ptr(), v8.data_ptr(), N, code, out_budget,
+        seg_new.data_ptr(), v8.data_ptr(), N, opcode(ops), out_budget,
         out.data_ptr(), count.data_ptr(), scratch.data_ptr(),
         _build.stream_of(v8)), "sseg_reduce_compact")
     return out, count[0]

@@ -10,8 +10,8 @@ Per unitig: backbone = offset-concatenation of the layout's Y reads; then
      `ops.segdp.seg_align_tb` (the CUDA kernel csrc/segdp.cu on the card),
      and stitch each read's segment alignments on the host,
   3. insert the accepted alignments best-score-first into the native DAG
-     (native/dagcns.cpp through the JAX package's JAX-free ctypes wrapper,
-     shared), merge nodes, take the consensus and remap read offsets.
+     (the port's copy of native/dagcns.cpp, through utils/native.py),
+     merge nodes, take the consensus and remap read offsets.
 
 The host parts (layout parsing, segmenting, stitching, the DAG loop)
 are copies of the JAX package's, held equal to their sources by
@@ -28,9 +28,9 @@ import time
 import numpy as np
 import torch
 
-from smartdenovo_tpu.data.readbank import codes_to_seq, revcomp_codes
-from smartdenovo_tpu.utils.log import log
-from smartdenovo_tpu.utils.native import DagCns
+from ..data.readbank import codes_to_seq, revcomp_codes
+from ..utils.log import log
+from ..utils.native import DagCns
 
 from ..ops.segdp import seg_align_tb, unpack_moves
 
@@ -125,7 +125,7 @@ def units_from_graph(graph) -> list[LayUnitig]:
             if dir:
                 codes = revcomp_codes(codes)
                 if q is not None:
-                    from smartdenovo_tpu.data.readbank import revcomp_f5q
+                    from ..data.readbank import revcomp_f5q
 
                     q = revcomp_f5q(q)
             reads.append(np.ascontiguousarray(codes))
@@ -142,7 +142,7 @@ def units_from_graph(graph) -> list[LayUnitig]:
 
 def parse_lay_file(path: str) -> list[LayUnitig]:
     """Parse a reference-format .lay file (README-tools.md:248-268)."""
-    from smartdenovo_tpu.data.readbank import seq_to_codes
+    from ..data.readbank import seq_to_codes
 
     units = []
     cur = None
@@ -767,7 +767,7 @@ def run_cns(units: list[LayUnitig], params: CnsParams | None = None,
 
 
 def write_cns(path: str, results):
-    from smartdenovo_tpu.io.fasta import write_fasta
+    from ..io.fasta import write_fasta
 
     with open(path, "w") as fh:
         for name, codes in results:

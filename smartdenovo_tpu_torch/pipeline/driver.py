@@ -5,9 +5,9 @@ consensus (port of smartdenovo_tpu/pipeline/driver.py).
         wtclp -d 3 -k 300 -m 0.1 -FT                  -> PREFIX.dmo.obt
         wtlay -w 300 -s 200 -m 0.1 -r 0.95 -c 1       -> PREFIX.dmo.lay(.utg)
 
-Only the overlap stage runs on the device; wtclp and wtlay are the JAX
-package's host modules, imported as they are.  Stage times are logged as
-"stage <name>: <seconds>s".
+Only the overlap stage runs on the device; wtclp and wtlay are the
+port's copies of the JAX package's host modules (graph/).  Stage times
+are logged as "stage <name>: <seconds>s".
 """
 
 from __future__ import annotations
@@ -15,11 +15,11 @@ from __future__ import annotations
 import dataclasses
 import time
 
-from smartdenovo_tpu.data.readbank import ReadBank
-from smartdenovo_tpu.graph.clip import (ClpParams, overlaps_to_clp_records,
-                                        run_clp, write_clp)
-from smartdenovo_tpu.graph.stringgraph import LayParams, StringGraph, run_lay
-from smartdenovo_tpu.utils.log import log
+from ..data.readbank import ReadBank
+from ..graph.clip import (ClpParams, overlaps_to_clp_records, run_clp,
+                          write_clp)
+from ..graph.stringgraph import LayParams, StringGraph, run_lay
+from ..utils.log import log
 
 from .zmo import ZmoParams, overlap_dmo, write_overlaps
 

@@ -13,8 +13,8 @@ import dataclasses
 
 import numpy as np
 
-from smartdenovo_tpu.utils.log import log
-from smartdenovo_tpu.utils.native import PoaCns
+from ..utils.log import log
+from ..utils.native import PoaCns
 
 from .cns import LayUnitig, _gen_backbone
 

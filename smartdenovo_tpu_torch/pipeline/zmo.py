@@ -23,8 +23,8 @@ import time
 import numpy as np
 import torch
 
-from smartdenovo_tpu.data.readbank import ReadBank
-from smartdenovo_tpu.utils.log import log
+from ..data.readbank import ReadBank
+from ..utils.log import log
 
 from ..ops.candidates import scan_candidates
 from ..ops.dotmatrix import (dot_matrix_align, extract_zmer_pairs_join,

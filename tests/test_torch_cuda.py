@@ -14,6 +14,7 @@ from smartdenovo_tpu_torch.kernels import _build
 from smartdenovo_tpu_torch.ops import jpost, pexpand, segdp, sseg
 
 I32_MAX = (1 << 31) - 1
+DEFAULT_OPS = sseg.DEFAULT_OPS
 pytestmark = pytest.mark.cuda
 
 
@@ -44,10 +45,7 @@ def _sseg_stream(rng, N):
     return seg_new, v8
 
 
-@pytest.mark.parametrize("ops", [
-    ("sum", "min", "min", "max", "max", "first", "first", "first"),
-    ("sum", "min", "min", "max", "max", "first", "sum", "first"),
-    ("sum",) + ("first",) * 7])
+@pytest.mark.parametrize("ops", sseg.MAIN_PATH_OPS)
 @pytest.mark.parametrize("N", [1000, 1024, 300_001])
 def test_sseg_cuda_matches_plain(cuda, ops, N):
     seg_new, v8 = _sseg_stream(np.random.default_rng(N), N)
@@ -61,6 +59,85 @@ def test_sseg_cuda_matches_plain(cuda, ops, N):
         assert int(gcnt) == int(ecnt) == n_seg
         n = min(n_seg, ob)
         assert torch.equal(got[:, :n].cpu(), exp[:, :n])
+
+
+def _sseg_check(seg_new, v8, ops, ob, dev, plain_dev="cpu"):
+    """K1 on the card against its plain version (on plain_dev)."""
+    got, gcnt = sseg.seg_reduce_compact(seg_new.to(dev), v8.to(dev), ops=ops,
+                                        out_budget=ob)
+    exp, ecnt = sseg.seg_reduce_compact_plain(
+        seg_new.to(plain_dev), v8.to(plain_dev), ops=ops, out_budget=ob)
+    assert int(gcnt) == int(ecnt)
+    n = min(int(ecnt), ob)
+    assert torch.equal(got[:, :n].cpu(), exp[:, :n].cpu())
+    return int(ecnt)
+
+
+def test_sseg_cuda_segment_over_10000_tiles(cuda):
+    """One segment over ~16,000 tiles of 2048 entries, short ones around
+    it; the plain version runs on the card too (2^25 entries)."""
+    N = 1 << 25
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    seg_new = (torch.rand(N, generator=g, device=cuda) < 0.05).to(torch.int32)
+    seg_new[5000:N - 5000] = 0
+    v8 = torch.randint(-1000, 1 << 20, (8, N), generator=g, device=cuda,
+                       dtype=torch.int32)
+    n = _sseg_check(seg_new, v8, sseg.BLOCK_OPS, 1 << 12, cuda, plain_dev=cuda)
+    assert (N - 10000) // _build.lib().sseg_tile() > 10_000 and n > 100
+
+
+def test_sseg_main_path_ops_specialized(cuda):
+    """Every lane-op set of the main path runs an instantiation compiled
+    with its ops known; another set runs the generic one."""
+    lib = _build.lib()
+    for ops in sseg.MAIN_PATH_OPS:
+        assert lib.sseg_specialized(sseg.opcode(ops)) == 1, ops
+    assert lib.sseg_specialized(sseg.opcode(("min",) * 8)) == 0
+
+
+@pytest.mark.parametrize("N", [1, 5, 2047, 2049, 4096 * 3 + 3, 100_001])
+def test_sseg_cuda_ragged_lengths(cuda, N):
+    """N not a multiple of the tile (2048) or of the vector width (4)."""
+    seg_new, v8 = _sseg_stream(np.random.default_rng(N), N)
+    for ob in (N + 1, max(1, int(seg_new.sum()) // 2)):
+        _sseg_check(_t(seg_new), _t(v8), DEFAULT_OPS, ob, cuda)
+
+
+@pytest.mark.parametrize("kind", ["every", "single", "misaligned"])
+def test_sseg_cuda_flag_patterns(cuda, kind):
+    """A start at every entry, a single segment, and a stream whose
+    pointers are not 16-byte aligned (the scalar load path)."""
+    N = 70_000
+    rng = np.random.default_rng(7)
+    seg_new, v8 = _sseg_stream(rng, N)
+    if kind == "every":
+        seg_new[:] = 1
+    elif kind == "single":
+        seg_new[:] = 0
+    f, v = _t(seg_new), _t(v8)
+    if kind == "misaligned":
+        f = torch.cat([torch.zeros(1, dtype=torch.int32), f]).to(cuda)[1:]
+        buf = torch.zeros(8 * N + 1, dtype=torch.int32, device=cuda)
+        buf[1:] = v.flatten().to(cuda)
+        v = buf[1:].view(8, N)
+    n = _sseg_check(f, v, DEFAULT_OPS, N, cuda)
+    assert n == {"every": N, "single": 1}.get(kind, int(seg_new[1:].sum()) + 1)
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max", "first"])
+def test_sseg_cuda_each_op_each_lane(cuda, op):
+    """Every lane under one op; values span the int32 range (sums wrap)
+    and hold INT32_MAX often, so "first" skips some."""
+    N = 50_000
+    rng = np.random.default_rng(["sum", "min", "max", "first"].index(op))
+    seg_new = (rng.random(N) < 0.02).astype(np.int32)
+    v8 = rng.integers(-(1 << 31), I32_MAX, (8, N), dtype=np.int64)
+    v8[rng.random((8, N)) < 0.3] = I32_MAX
+    v8 = v8.astype(np.int32)
+    n = int(seg_new[1:].sum()) + 1
+    for ob in (n, n - 3):
+        _sseg_check(_t(seg_new), _t(v8), (op,) * 8, ob, cuda)
 
 
 def _join_stream(rng, N):
@@ -112,8 +189,8 @@ def test_pexpand_cuda_matches_plain(cuda, NE):
 def test_overlap_dmo_cuda_matches_cpu(cuda, matcher):
     """The whole overlapper, record for record; the join run must have
     gone through all three kernels."""
-    from smartdenovo_tpu.data.readbank import ReadBank
-    from smartdenovo_tpu.utils.simulate import random_genome, simulate_reads
+    from smartdenovo_tpu_torch.data.readbank import ReadBank
+    from smartdenovo_tpu_torch.utils.simulate import random_genome, simulate_reads
     from smartdenovo_tpu_torch.pipeline.zmo import ZmoParams, overlap_dmo
 
     rng = np.random.default_rng(11)
@@ -188,7 +265,7 @@ def probe_tie_inputs(rng, B=6, L=1500, period=50):
 def unit_12kb(LayUnitig=None):
     """The 12 kb unit of tests/test_cns.py: 28 backbone reads of 3.5 kb at
     13% error every 400 bp, and 3 more that are not backbone."""
-    from smartdenovo_tpu.utils.simulate import mutate_read, random_genome
+    from smartdenovo_tpu_torch.utils.simulate import mutate_read, random_genome
 
     if LayUnitig is None:
         from smartdenovo_tpu_torch.pipeline.cns import LayUnitig
@@ -215,6 +292,47 @@ def test_segdp_cuda_matches_plain(cuda, shape, gaps):
     exp = segdp.seg_align_tb(*(_t(x) for x in args), **kw)
     for g, e in zip(got, exp):
         assert torch.equal(g.cpu(), e)
+
+
+def edge_segments(rng, Bc, SEGR, LBW, W, step):
+    """segments() with band bases that step by up to `step` columns every
+    16 rows (several band lanes a row), and every fourth window shorter
+    than the band."""
+    a, b, alen, blen, b16 = segments(rng, Bc, SEGR, LBW, W)
+    NB = b16.shape[1]
+    walk = np.cumsum(rng.integers(0, step + 1, (Bc, NB)), axis=1)
+    b16 = np.clip(walk - W // 2, 0, LBW - 1).astype(np.int16)
+    short = np.arange(Bc) % 4 == 3
+    blen[short] = rng.integers(1, W, int(short.sum()))
+    b[short] = np.where(np.arange(LBW)[None, :] < blen[short, None],
+                        b[short], 4)
+    return a, b, alen, blen, b16
+
+
+@pytest.mark.parametrize("gaps", [(-3, -3), (-2, -3)])
+@pytest.mark.parametrize("W", [32, 64, 128, 256])
+def test_segdp_cuda_edge_bands(cuda, W, gaps):
+    """Band steps of up to 200 columns a 16-row sample (more than one
+    lane's 8 band lanes a row), alen 0 and SEGR, windows shorter than the
+    band, both gap-open pairs, every band width the kernel takes."""
+    SEGR, LBW, T = 512, 4096, 768
+    args = edge_segments(np.random.default_rng(W - gaps[0]), 48, SEGR, LBW,
+                         W, 200)
+    assert (args[2] == 0).any() and (args[2] == SEGR).any()
+    assert (args[3] < W).any()
+    kw = dict(SEGR=SEGR, LBW=LBW, W=W, T=T, open_i=gaps[0], open_d=gaps[1])
+    got = segdp.seg_align_tb(*(_t(x).to(cuda) for x in args), **kw)
+    exp = segdp.seg_align_tb(*(_t(x) for x in args), **kw)
+    for g, e in zip(got, exp):
+        assert torch.equal(g.cpu(), e)
+
+
+def test_segdp_cuda_one_wave(cuda):
+    """A call of 1024 segments at the consensus stage's widths is one
+    wave: every segment's warp is resident at once."""
+    wpb, per_sm = segdp.launch_shape(2048, 3072, 256)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert 1024 <= wpb * per_sm * sms
 
 
 def test_probe_anchor_ties_cuda_matches_cpu(cuda):

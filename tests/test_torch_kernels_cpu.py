@@ -89,6 +89,24 @@ def test_sseg_first_lane_neutral_and_overflow():
     assert np.array_equal(out.numpy(), exp[:, :4])
 
 
+def test_sseg_cuda_specializes_main_path_ops():
+    """csrc/sseg.cu compiles exactly the main path's lane-op sets with
+    their ops known: its opcode(...) constants are sseg.MAIN_PATH_OPS."""
+    import os
+    import re
+
+    src = os.path.join(os.path.dirname(sseg.__file__), os.pardir, "csrc",
+                       "sseg.cu")
+    with open(src) as fh:
+        consts = re.findall(
+            r"constexpr int OPS_\w+ = opcode\(([\d, ]+)\);", fh.read())
+    names = ("sum", "min", "max", "first")
+    compiled = {sseg.opcode([names[int(c)] for c in args.split(",")])
+                for args in consts}
+    assert len(consts) == 3
+    assert compiled == {sseg.opcode(ops) for ops in sseg.MAIN_PATH_OPS}
+
+
 # ---------------------------------------------------------------- K2 jpost
 
 

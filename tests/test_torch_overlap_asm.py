@@ -6,9 +6,6 @@ JAX, and what it does not run yet says so."""
 
 import dataclasses
 import inspect
-import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -28,7 +25,6 @@ from smartdenovo_tpu_torch.pipeline import zmo as tzmo
 
 torch.set_num_threads(1)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FILES = (".ovl", ".obt", ".lay", ".lay.utg")
 
 
@@ -135,25 +131,14 @@ def test_copied_host_helpers_equal_sources():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, the JAX package's host modules
-    it shares and chip_smoke.py leaves jax unimported."""
-    code = (
-        "import sys, pkgutil, importlib\n"
-        "import smartdenovo_tpu_torch as p\n"
-        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        "mods += ['chip_smoke', 'smartdenovo_tpu.pipeline.pre',\n"
-        "         'smartdenovo_tpu.io.fasta', 'smartdenovo_tpu.utils.simulate',\n"
-        "         'smartdenovo_tpu.utils.native']\n"
-        "for m in mods:\n"
-        "    importlib.import_module(m)\n"
-        "assert 'smartdenovo_tpu_torch.cli' in sys.modules\n"
-        "assert 'jax' not in sys.modules, [m for m in sys.modules if 'jax' in m]\n"
-        "print(len(mods))\n")
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 15
+    """Importing every module of the port and chip_smoke.py leaves jax
+    unimported (the one import walk of test_torch_host_copies.py)."""
+    from test_torch_host_copies import port_import_walk
+
+    n, _bad, loaded = port_import_walk()
+    assert "smartdenovo_tpu_torch.cli" in loaded
+    assert "jax" not in loaded
+    assert n >= 15
 
 
 def test_unported_paths_raise(bank, tmp_path):
