@@ -11,11 +11,15 @@ non-zero:
 3. kernels  K1 (sseg), K2 (jpost), K3 (pexpand) and the consensus segment DP
             (segdp) on seeded inputs at the widths the main path gives them,
             each held equal to its plain PyTorch version on the same inputs
-            (integer outputs: the tolerance is 0), with median CUDA-event
-            times of both, each kernel's bound (bytes over HBM or int32
-            operations over the int32 rate) and its share of it, and for K3
-            the time of torch.repeat_interleave; segdp must run Bc = 1024
-            segments in one wave
+            (integer outputs: the tolerance is 0), with the median
+            CUDA-event times of both (each call timed alone; for K1-K3 also
+            the mean of 10 calls in a row, which hides the host's launch
+            overhead), each kernel's bound (bytes over HBM or int32
+            operations over the int32 rate; K2 counts its key stream and pay, aux and the
+            record of its emitters only, K3 the counts, the payloads of the
+            emitters that own a slot and the three output rows) and its
+            share of it, and for K3 the time of torch.repeat_interleave;
+            segdp must run Bc = 1024 segments in one wave
 4. join     the overlapper with the sort-join matcher on a deep 25 kb
             simulation, on cuda and on cpu: the overlap lists must be
             equal record for record, and K2 and K3 must have launched
@@ -36,7 +40,8 @@ non-zero:
                 offsets below CNS_CUT: stage time, segments, dispatches,
                 segdp launches (> 0), consensus length within 0.9-1.1x the
                 cut's backbone, >= 90% of its reads accepted in the last
-                iteration
+                iteration; the probe anchoring (_probe_anchor_device, torch
+                ops) is timed alone on the largest batch it was given there
 
 The last lines are one JSON object of kernel results, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -83,21 +88,25 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=10):
-    """Median device time of fn() in ms (CUDA events, after a warm-up)."""
+def cuda_ms(fn, reps=10, in_a_row=False):
+    """Median device time of fn() in ms (CUDA events, after a warm-up), each
+    call timed alone; with in_a_row, the mean of `reps` calls issued back to
+    back, so that the host's launch overhead hides under the device's work
+    (median of 3 such runs)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(3 if in_a_row else reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps if in_a_row else 1):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / (reps if in_a_row else 1))
     return statistics.median(times)
 
 
@@ -235,15 +244,16 @@ def phase_kernels(dev):
             raise AssertionError(f"K1 sseg differs from its plain version at "
                                  f"N={N}: count {int(cnt)} vs {int(pcnt)}")
         errs.append(max_abs(out[:, :n], pout[:, :n]))
-        ms = cuda_ms(lambda: sseg.seg_reduce_compact(seg_new, v8, ops=ops,
-                                                     out_budget=ob))
+        call = lambda: sseg.seg_reduce_compact(seg_new, v8, ops=ops,  # noqa: E731
+                                               out_budget=ob)
+        ms, rms = cuda_ms(call), cuda_ms(call, in_a_row=True)
         pms = cuda_ms(lambda: sseg.seg_reduce_compact_plain(
             seg_new, v8, ops=ops, out_budget=ob))
         t = timing(ms, pms, 36 * N + 32 * n + 4)
-        say(f"kernel sseg N={N} segments={int(cnt)}: {ms:.3f} ms, "
-            f"plain {pms:.3f} ms, bound {t['bound_ms']:.3f} ms "
+        say(f"kernel sseg N={N} segments={int(cnt)}: {ms:.3f} ms ({rms:.3f} "
+            f"in a row), plain {pms:.3f} ms, bound {t['bound_ms']:.3f} ms "
             f"({t['bound_by']}), share {t['share']:.3f}, equal")
-        shapes.append(dict(t, N=N))
+        shapes.append(dict(t, N=N, ms_in_a_row=rms))
         del seg_new, v8, out, pout
     results["sseg"] = dict(shapes[-1], max_abs_err=max(errs), shapes=shapes)
 
@@ -264,15 +274,19 @@ def phase_kernels(dev):
                              f"emitters {int(nem)} vs {int(pnem)}, slots "
                              f"{int(tot)} vs {int(ptot)}")
     err = max_abs(eout[:, :n], pout[:, :n])
-    ms = cuda_ms(lambda: jpost.join_emitters(key, pay, aux, max_per_read=16,
-                                             out_budget=EB))
+    call = lambda: jpost.join_emitters(key, pay, aux, max_per_read=16,  # noqa: E731
+                                       out_budget=EB)
+    ms, rms = cuda_ms(call), cuda_ms(call, in_a_row=True)
     pms = cuda_ms(lambda: jpost.join_emitters_plain(
         key, pay, aux, max_per_read=16, out_budget=EB))
-    t = timing(ms, pms, 12 * N + 16 * n + 8)
+    # the key stream once; pay, aux and the record of each emitter; the
+    # two totals
+    t = timing(ms, pms, 4 * N + 24 * n + 8)
     say(f"kernel jpost N={N} emitters={int(nem)} slots={int(tot)}: "
-        f"{ms:.3f} ms, plain {pms:.3f} ms, bound {t['bound_ms']:.3f} ms "
-        f"({t['bound_by']}), share {t['share']:.3f}, equal")
-    results["jpost"] = dict(t, max_abs_err=err)
+        f"{ms:.3f} ms ({rms:.3f} in a row), plain {pms:.3f} ms, bound "
+        f"{t['bound_ms']:.3f} ms ({t['bound_by']}), share "
+        f"{t['share']:.3f}, equal")
+    results["jpost"] = dict(t, max_abs_err=err, ms_in_a_row=rms)
 
     # K3 on K2's emitters, pair budget 2^23
     PB = 1 << 23
@@ -285,7 +299,8 @@ def phase_kernels(dev):
     if not all(torch.equal(a, b) for a, b in zip(got, ref)):
         raise AssertionError("K3 pexpand differs from its plain version")
     err = max(max_abs(a, b) for a, b in zip(got, ref))
-    ms = cuda_ms(lambda: pexpand.expand_emit(*args, pair_budget=PB))
+    call = lambda: pexpand.expand_emit(*args, pair_budget=PB)  # noqa: E731
+    ms, rms = cuda_ms(call), cuda_ms(call, in_a_row=True)
     pms = cuda_ms(lambda: pexpand.expand_emit_plain(*args, pair_budget=PB))
     # the one PyTorch call of the same function (without the padding to
     # PB), timed here only: the port never calls it
@@ -296,15 +311,16 @@ def phase_kernels(dev):
         raise AssertionError("repeat_interleave differs from K3")
     lms = cuda_ms(lambda: torch.repeat_interleave(pay3, cnt_c, dim=1,
                                                   output_size=slots))
-    # the cumsum is read over all EB emitters, the three payloads only for
-    # the emitters that own a slot, and the three outputs written over PB
+    # the counts are read over all EB emitters (their cumsum), the three
+    # payloads only for the emitters that own a slot, and the three outputs
+    # written over PB
     owners = int((cnt_c > 0).sum())
     t = timing(ms, pms, 4 * EB + 12 * owners + 12 * PB, library_ms=lms)
-    say(f"kernel pexpand PB={PB} slots={slots} owners={owners}: {ms:.3f} ms, "
-        f"plain {pms:.3f} ms, repeat_interleave {lms:.3f} ms, bound "
-        f"{t['bound_ms']:.3f} ms ({t['bound_by']}), share "
-        f"{t['share']:.3f}, equal")
-    results["pexpand"] = dict(t, max_abs_err=err)
+    say(f"kernel pexpand PB={PB} slots={slots} owners={owners}: {ms:.3f} ms "
+        f"({rms:.3f} in a row), plain {pms:.3f} ms, repeat_interleave "
+        f"{lms:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}), "
+        f"share {t['share']:.3f}, equal")
+    results["pexpand"] = dict(t, max_abs_err=err, ms_in_a_row=rms)
     del pay3, lib
     del key, pay, aux, eout, pout, cnt_c, args, got, ref
     results["segdp"] = phase_segdp(dev)
@@ -678,7 +694,19 @@ def phase_cns(tmp, cut):
     unit = cns.parse_lay_file(lay)[0]
     bb = len(cns._gen_backbone(unit))
     _build.reset_launches()
-    log, wall = _run_cli(["cns", "-i", lay, "-o", lay + ".cns", "-n", "6"])
+    probe, seen = cns._probe_anchor_device, {"calls": 0, "args": None}
+
+    def probe_seen(*a, **kw):  # counts the calls, keeps the largest batch
+        seen["calls"] += 1
+        if seen["args"] is None or a[0].shape[0] > seen["args"][0].shape[0]:
+            seen["args"] = a
+        return probe(*a, **kw)
+
+    cns._probe_anchor_device = probe_seen
+    try:
+        log, wall = _run_cli(["cns", "-i", lay, "-o", lay + ".cns", "-n", "6"])
+    finally:
+        cns._probe_anchor_device = probe
     launches = _build.LAUNCHES["segdp"]
     segs = re.findall(r": (\d+) segments in (\d+) dispatches of (\d+), "
                       r"([0-9.]+)s", log)
@@ -701,7 +729,28 @@ def phase_cns(tmp, cut):
         raise AssertionError(f"E. coli cut cns: launches {launches}, length "
                              f"{L} vs backbone {bb}, {aligned} of {kept} "
                              f"reads accepted")
+    time_probe(seen["args"], seen["calls"])
     return launches
+
+
+def time_probe(args, calls):
+    """CUDA-event time of the probe anchoring on one batch of phase 6 (c).
+    Its bound: the reads and windows (bytes) read once and px, py, found
+    written; or the operations of the least work: a rolling k-mer code of
+    every window base (3 int32 operations) and, per probe and diagonal
+    offset, a compare, two range tests, a select and a max (5)."""
+    from smartdenovo_tpu_torch.pipeline import cns
+
+    a, alen, w, wlen, doff = args
+    B, LA = a.shape
+    LW = w.shape[1]
+    S, D = 96, 1024     # _probe_anchor_device's defaults, as cns calls it
+    ms = cuda_ms(lambda: cns._probe_anchor_device(*args), reps=2)
+    t = timing(ms, None, B * (LA + LW) + 12 * B + 9 * B * S,
+               3 * B * LW + 5 * B * S * 2 * D)
+    say(f"probe anchoring (torch ops) B={B} LA={LA} LW={LW}: {ms:.3f} ms, "
+        f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}), share "
+        f"{t['share']:.4f}; {calls} calls in the cut's cns")
 
 
 def main() -> int:

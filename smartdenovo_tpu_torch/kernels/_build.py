@@ -33,7 +33,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {"sseg": 0, "jpost": 0, "pexpand": 0, "segdp": 0}
-TILE = 1024   # entries per block of K2 (csrc/common.cuh)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -51,15 +50,22 @@ _SIGNATURES = {
     "sseg_specialized": [_I32],
     # key, pay, aux, N, max_per_read, out_budget, out, totals, scratch, stream
     "jpost_join_emitters": [_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P],
-    # cum, pay, aux, base, NE, pair_budget, out, stream
-    "pexpand_expand_emit": [_P, _P, _P, _P, _I64, _I64, _P, _P],
+    # N -> ints of scratch that jpost_join_emitters needs
+    "jpost_scratch_ints": [_I64],
+    # -> entries a tile
+    "jpost_tile": [],
+    # cnt, pay, aux, base, NE, pair_budget, out, scratch, stream
+    "pexpand_expand_emit": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P],
+    # NE, pair_budget -> ints of scratch that pexpand_expand_emit needs
+    "pexpand_scratch_ints": [_I64, _I64],
     # a, b, alen, blen, b16, Bc, SEGR, LBW, NB, W, T, match, mismatch,
     # open_i, open_d, ext, dirs, score, b_beg, b_end, mvp, stream
     "segdp_align_tb": [_P, _P, _P, _P, _P] + [_I32] * 11 + [_P] * 6,
     # SEGR, LBW, W, segments a block, blocks an SM
     "segdp_occupancy": [_I32, _I32, _I32, _P, _P],
 }
-_RESTYPES = {"sseg_scratch_ints": _I64}   # the others return an int
+_RESTYPES = {"sseg_scratch_ints": _I64, "jpost_scratch_ints": _I64,
+             "pexpand_scratch_ints": _I64}   # the others return an int
 
 
 def _nvcc() -> str:

@@ -23,11 +23,12 @@ def join_emitters(key: torch.Tensor, pay: torch.Tensor, aux: torch.Tensor,
     """Dense emitter records from the sorted join stream.
 
     key: [N] int32 sorted (q<<zb+1 | zmer<<1 | side), INT32_MAX pad;
-    pay, aux: [N] int32 payloads.  Returns (records [8, out_budget] int32,
+    pay, aux: [N] int32 payloads.  Returns (records [4, out_budget] int32,
     n_emitters 0-d int32, total_slots 0-d int32).  Record rows: 0 = qcnt,
-    1 = pay, 2 = aux, 3 = query-table base (rs - ost2), 4-7 = 0.  Columns
-    >= n_emitters are unspecified; emitters past out_budget are dropped
-    (n_emitters still counts them)."""
+    1 = pay, 2 = aux, 3 = query-table base (rs - ost2); the JAX kernel's
+    rows 4-7 are its zero padding and are not kept.  Columns >= n_emitters
+    are unspecified; emitters past out_budget are dropped (n_emitters still
+    counts them)."""
     if key.device.type == "cuda":
         return _join_emitters_cuda(key, pay, aux, max_per_read, out_budget)
     if key.device.type == "cpu":
@@ -54,7 +55,7 @@ def join_emitters_plain(key, pay, aux, *, max_per_read: int, out_budget: int):
     em = torch.nonzero(cnt2 > 0).reshape(-1)
     nem = torch.tensor(em.shape[0], dtype=torch.int32, device=key.device)
     em = em[:out_budget]
-    out = torch.zeros((8, out_budget), dtype=torch.int32, device=key.device)
+    out = torch.zeros((4, out_budget), dtype=torch.int32, device=key.device)
     n = em.shape[0]
     out[0, :n] = cnt2[em]
     out[1, :n] = pay[em]
@@ -69,15 +70,17 @@ def _join_emitters_cuda(key, pay, aux, max_per_read, out_budget):
         if t.dtype != torch.int32 or t.shape != (N,) or t.device != key.device:
             raise ValueError(f"join_emitters: bad input {t.shape} {t.dtype} "
                              f"{t.device}")
-    if N < 1 or out_budget < 1:
+    if not 1 <= N < 1 << 30 or out_budget < 1:
+        # the kernel packs its tile counts in 30 bits
         raise ValueError(f"join_emitters: N={N} out_budget={out_budget}")
     key, pay, aux = key.contiguous(), pay.contiguous(), aux.contiguous()
-    nt = (N + _build.TILE - 1) // _build.TILE
     dev = key.device
-    out = torch.empty((8, out_budget), dtype=torch.int32, device=dev)
-    totals = torch.empty(2, dtype=torch.int32, device=dev)
-    scratch = torch.empty(9 * nt, dtype=torch.int32, device=dev)
     lib = _build.lib()
+    out = torch.empty((4, out_budget), dtype=torch.int32, device=dev)
+    totals = torch.empty(2, dtype=torch.int32, device=dev)
+    # the tile counter and each tile's two look-back words
+    scratch = torch.empty(lib.jpost_scratch_ints(N), dtype=torch.int32,
+                          device=dev)
     _build.LAUNCHES["jpost"] += 1
     _build.check(lib.jpost_join_emitters(
         key.data_ptr(), pay.data_ptr(), aux.data_ptr(), N, max_per_read,

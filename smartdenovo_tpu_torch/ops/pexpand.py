@@ -2,8 +2,9 @@
 (port of the Pallas kernel smartdenovo_tpu/ops/pexpand.py expand_emit).
 
 Each emitter's three payloads are replicated over its contiguous run of
-output slots.  On a CUDA tensor `expand_emit` launches csrc/pexpand.cu;
-on a CPU tensor it runs the plain PyTorch version (repeat_interleave).
+output slots.  On a CUDA tensor `expand_emit` launches csrc/pexpand.cu
+(the cumsum of the counts and a merge-path expansion); on a CPU tensor it
+runs the plain PyTorch version (repeat_interleave).
 """
 
 from __future__ import annotations
@@ -48,13 +49,15 @@ def _expand_emit_cuda(cnt, pay, aux, base, pair_budget):
                              f"{t.device}")
     if NE < 1 or pair_budget < 1:
         raise ValueError(f"expand_emit: NE={NE} pair_budget={pair_budget}")
-    cum = torch.cumsum(cnt, 0, dtype=torch.int32)
-    pay, aux, base = pay.contiguous(), aux.contiguous(), base.contiguous()
+    cnt, pay, aux, base = (t.contiguous() for t in (cnt, pay, aux, base))
     out = torch.empty((3, pair_budget), dtype=torch.int32, device=cnt.device)
     lib = _build.lib()
+    # the scan's tile words and the merge-path cuts
+    scratch = torch.empty(lib.pexpand_scratch_ints(NE, pair_budget),
+                          dtype=torch.int32, device=cnt.device)
     _build.LAUNCHES["pexpand"] += 1
     _build.check(lib.pexpand_expand_emit(
-        cum.data_ptr(), pay.data_ptr(), aux.data_ptr(), base.data_ptr(),
-        NE, pair_budget, out.data_ptr(), _build.stream_of(cnt)),
-        "pexpand_expand_emit")
+        cnt.data_ptr(), pay.data_ptr(), aux.data_ptr(), base.data_ptr(),
+        NE, pair_budget, out.data_ptr(), scratch.data_ptr(),
+        _build.stream_of(cnt)), "pexpand_expand_emit")
     return out[0], out[1], out[2]

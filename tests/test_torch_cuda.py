@@ -160,14 +160,139 @@ def _join_stream(rng, N):
 def test_jpost_cuda_matches_plain(cuda, N):
     key, pay, aux = _join_stream(np.random.default_rng(N), N)
     for ob in (N, 17):
-        got = jpost.join_emitters(*(_t(a).to(cuda) for a in (key, pay, aux)),
-                                  max_per_read=16, out_budget=ob)
-        exp = jpost.join_emitters(_t(key), _t(pay), _t(aux),
-                                  max_per_read=16, out_budget=ob)
-        assert (int(got[1]), int(got[2])) == (int(exp[1]), int(exp[2]))
-        n = min(int(exp[1]), ob)
-        assert n > 0
-        assert torch.equal(got[0][:, :n].cpu(), exp[0][:, :n])
+        assert _jpost_check(_t(key), _t(pay), _t(aux), 16, ob, cuda) > 0
+
+
+def _jpost_check(key, pay, aux, mpr, ob, dev, plain_dev="cpu"):
+    """K2 on the card against its plain version (on plain_dev); returns
+    the emitter count."""
+    got, gnem, gtot = jpost.join_emitters(key.to(dev), pay.to(dev),
+                                          aux.to(dev), max_per_read=mpr,
+                                          out_budget=ob)
+    exp, enem, etot = jpost.join_emitters_plain(
+        key.to(plain_dev), pay.to(plain_dev), aux.to(plain_dev),
+        max_per_read=mpr, out_budget=ob)
+    assert got.shape == exp.shape == (4, ob)
+    assert (int(gnem), int(gtot)) == (int(enem), int(etot))
+    n = min(int(enem), ob)
+    assert torch.equal(got[:, :n].cpu(), exp[:, :n].cpu())
+    return int(enem)
+
+
+def test_jpost_cuda_open_run_over_10000_tiles(cuda):
+    """One query entry, then 2^25 - 1 candidate entries of its run: every
+    one emits with qcnt 1, so the open run's count crosses ~16,000 tiles;
+    the plain version runs on the card too."""
+    N = 1 << 25
+    key = torch.full((N,), (5 << 1) | 1, dtype=torch.int32, device=cuda)
+    key[0] = 5 << 1
+    g = torch.Generator(device=cuda)
+    g.manual_seed(4)
+    pay, aux = (torch.randint(-(1 << 31), I32_MAX, (N,), generator=g,
+                              device=cuda, dtype=torch.int32)
+                for _ in range(2))
+    n = _jpost_check(key, pay, aux, 16, N, cuda, plain_dev=cuda)
+    assert n == N - 1 and N // _build.lib().jpost_tile() > 10_000
+
+
+@pytest.mark.parametrize("mpr", [16, 4096])
+def test_jpost_cuda_query_run_over_a_tile(cuda, mpr):
+    """A run of 3000 query entries (more than a tile of 2048), then its
+    500 candidates: they emit qcnt 3000 under max_per_read 4096 and
+    nothing under 16; short runs after them emit in both."""
+    rng = np.random.default_rng(mpr)
+    key, pay, aux = _join_stream(rng, 20_000)
+    rest = key[:20_000 - 3500]
+    key[3500:] = np.where(rest != I32_MAX, rest + (2 << 1), rest)
+    key[:3000] = 1 << 1
+    key[3000:3500] = (1 << 1) | 1
+    key[-2000:] = I32_MAX
+    n = _jpost_check(_t(key), _t(pay), _t(aux), mpr, 20_000, cuda)
+    assert n > (500 if mpr == 4096 else 0)
+
+
+@pytest.mark.parametrize("kind", ["queries", "candidates", "dead"])
+def test_jpost_cuda_no_emitter(cuda, kind):
+    """Streams with no emitter: query entries only, candidate entries
+    without a query entry in their run, all INT32_MAX."""
+    N = 10_000
+    rng = np.random.default_rng(3)
+    grp = np.sort(rng.integers(0, 500, N)).astype(np.int32) << 1
+    key = {"queries": grp, "candidates": grp | 1,
+           "dead": np.full(N, I32_MAX, np.int32)}[kind]
+    pay, aux = (_t(rng.integers(0, 1 << 20, N).astype(np.int32))
+                for _ in range(2))
+    assert _jpost_check(_t(key), pay, aux, 16, 64, cuda) == 0
+
+
+@pytest.mark.parametrize("N", [1, 7, 2047, 2049, 2048 * 3 + 5, 100_001])
+def test_jpost_cuda_ragged_lengths(cuda, N):
+    """N not a multiple of the tile (2048) or of the vector width (4),
+    with an out_budget above and one below the emitter count."""
+    key, pay, aux = _join_stream(np.random.default_rng(N), N)
+    args = (_t(key), _t(pay), _t(aux))
+    n = _jpost_check(*args, 16, N, cuda)
+    for ob in (max(1, n // 3), 1):
+        _jpost_check(*args, 16, ob, cuda)
+
+
+def test_jpost_cuda_misaligned(cuda):
+    """key, pay and aux 4 bytes past a 16-byte boundary (the scalar key
+    loads), with an out_budget below the emitter count."""
+    N = 70_001
+    key, pay, aux = _join_stream(np.random.default_rng(8), N)
+    off = [torch.cat([torch.zeros(1, dtype=torch.int32), _t(a)]).to(cuda)[1:]
+           for a in (key, pay, aux)]
+    assert all(a.data_ptr() % 16 == 4 for a in off)
+    n = _jpost_check(*off, 16, N, cuda)
+    _jpost_check(*off, 16, n - 100, cuda)
+
+
+@pytest.mark.parametrize("kernel", ["jpost", "pexpand"])
+def test_lookback_kernels_repeat(cuda, kernel):
+    """K2 and K3 at the main path's width (2^23), 20 launches in a row, each
+    equal to the plain version: the tiles' look-back words race with their
+    readers, and a torn or stale word would show as a wrong record."""
+    N = 1 << 23
+    g = torch.Generator(device=cuda)
+    g.manual_seed(6)
+    grp = torch.sort(torch.randint(0, N // 8, (N,), generator=g, device=cuda,
+                                   dtype=torch.int32)).values
+    side = torch.randint(0, 2, (N,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    key = torch.sort((grp << 1) | side).values
+    pay, aux = (torch.randint(-(1 << 31), I32_MAX, (N,), generator=g,
+                              device=cuda, dtype=torch.int32)
+                for _ in range(2))
+    exp = jpost.join_emitters_plain(key, pay, aux, max_per_read=16,
+                                    out_budget=N)
+    n = int(exp[1])
+    cnt = torch.where(torch.arange(N, device=cuda) < n, exp[0][0], 0)
+    pexp = pexpand.expand_emit_plain(cnt, exp[0][1], exp[0][2], exp[0][3],
+                                     pair_budget=N)
+    assert n > N // 10
+    for _ in range(20):
+        if kernel == "jpost":
+            got = jpost.join_emitters(key, pay, aux, max_per_read=16,
+                                      out_budget=N)
+            assert (int(got[1]), int(got[2])) == (n, int(exp[2]))
+            assert torch.equal(got[0][:, :n], exp[0][:, :n])
+        else:
+            got = pexpand.expand_emit(cnt, exp[0][1], exp[0][2], exp[0][3],
+                                      pair_budget=N)
+            assert all(torch.equal(a, b) for a, b in zip(got, pexp))
+
+
+def _pexpand_check(cnt, pb, dev):
+    """K3 on the card against its plain version on the CPU, with seeded
+    payloads."""
+    rng = np.random.default_rng(len(cnt))
+    args = [cnt] + [rng.integers(-(1 << 31), I32_MAX, len(cnt))
+                    .astype(np.int32) for _ in range(3)]
+    got = pexpand.expand_emit(*(_t(a).to(dev) for a in args), pair_budget=pb)
+    exp = pexpand.expand_emit(*(_t(a) for a in args), pair_budget=pb)
+    for g, e in zip(got, exp):
+        assert torch.equal(g.cpu(), e)
 
 
 @pytest.mark.parametrize("NE", [1, 5000, 300_000])
@@ -175,14 +300,55 @@ def test_pexpand_cuda_matches_plain(cuda, NE):
     rng = np.random.default_rng(NE)
     cnt = rng.integers(0, 15, NE).astype(np.int32)
     cnt[NE // 2 + 1:] = 0
-    args = [cnt] + [rng.integers(-(1 << 31), I32_MAX, NE).astype(np.int32)
-                    for _ in range(3)]
     for pb in (int(cnt.sum()) + 100, int(cnt.sum()) // 2 + 1):
-        got = pexpand.expand_emit(*(_t(a).to(cuda) for a in args),
-                                  pair_budget=pb)
-        exp = pexpand.expand_emit(*(_t(a) for a in args), pair_budget=pb)
-        for g, e in zip(got, exp):
-            assert torch.equal(g.cpu(), e)
+        _pexpand_check(cnt, pb, cuda)
+
+
+def test_pexpand_cuda_zero_runs(cuda):
+    """Zero counts between nonzero ones: single zeros, and runs of 5,000
+    and 20,000 zeros (longer than a block's 2048 merge-path items)."""
+    rng = np.random.default_rng(21)
+    cnt = rng.integers(0, 9, 60_000).astype(np.int32)
+    cnt[rng.random(60_000) < 0.3] = 0
+    cnt[10_000:15_000] = 0
+    cnt[30_000:50_000] = 0
+    total = int(cnt.sum())
+    for pb in (total + 4099, total - 7, 4097):
+        _pexpand_check(cnt, pb, cuda)
+
+
+def test_pexpand_cuda_emitter_over_100000_slots(cuda):
+    """One emitter owns 150,000 slots among short ones; the budget ends
+    past the total, inside the long run, and just after it."""
+    rng = np.random.default_rng(22)
+    cnt = rng.integers(0, 6, 3000).astype(np.int32)
+    cnt[1500] = 150_000
+    start = int(cnt[:1500].sum())
+    for pb in (int(cnt.sum()) + 1000, start + 77_777, start + 150_001):
+        _pexpand_check(cnt, pb, cuda)
+
+
+def test_pexpand_cuda_budget_cuts_runs(cuda):
+    """Budgets that end inside an emitter's run, at every offset mod 4
+    (the 16-byte stores' edge)."""
+    rng = np.random.default_rng(23)
+    cnt = rng.integers(1, 40, 20_000).astype(np.int32)
+    cum = np.cumsum(cnt)
+    for k in (7, 5000, 19_998):
+        for d in range(1, 5):
+            _pexpand_check(cnt, int(cum[k]) - d, cuda)
+
+
+@pytest.mark.parametrize("case", ["one", "all_zero"])
+def test_pexpand_cuda_degenerate(cuda, case):
+    """NE = 1 (budgets below, at and above its count), and all counts 0
+    (every slot is 0)."""
+    if case == "one":
+        for pb in (3, 9, 100):
+            _pexpand_check(np.array([9], np.int32), pb, cuda)
+    else:
+        for ne, pb in ((1, 1), (5000, 1000), (3, 70_001)):
+            _pexpand_check(np.zeros(ne, np.int32), pb, cuda)
 
 
 @pytest.mark.parametrize("matcher", ["auto", "join"])
