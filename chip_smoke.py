@@ -19,7 +19,10 @@ non-zero:
             record of its emitters only, K3 the counts, the payloads of the
             emitters that own a slot and the three output rows) and its
             share of it, and for K3 the time of torch.repeat_interleave;
-            segdp must run Bc = 1024 segments in one wave
+            segdp must run Bc = 1024 segments in one wave; the whole-read
+            DPs (banded, refine, refine5q) are timed and held equal to their
+            plain versions at 64 reads of LA 32768, a batch shape that
+            phase 7's E. coli align pass gives them
 4. join     the overlapper with the sort-join matcher on a deep 25 kb
             simulation, on cuda and on cpu: the overlap lists must be
             equal record for record, and K2 and K3 must have launched
@@ -42,9 +45,29 @@ non-zero:
                 cut's backbone, >= 90% of its reads accepted in the last
                 iteration; the probe anchoring (_probe_anchor_device, torch
                 ops) is timed alone on the largest batch it was given there
+7. whole-read  the whole-read consensus engine on cuda:
+            (a) `run_cns` on smoke.ref.lay, seg_engine=False, 6 iterations,
+                with -a/-V: each unitig's identity against smoke.ref.cns
+                beside the segment engine's of 6 (a), held above its raw
+                backbone's; the .aln records checked as tests/test_cns.py
+                does
+            (b) the golden unitig with fewest reads, one iteration and its
+                -a/-V records, on cuda and on cpu: codes, offsets and .aln
+                bytes equal
+            (c) `cns -n 1 -a -V 2.05` through the CLI on phase 5's E. coli
+                layout cut to offsets below WR_CUT: records for >= 90% of
+                its reads, each consistent with its Q row
+            (d) the same cut with seeded synthetic f5q tracks in column 7,
+                `cns -n 2`: refine5q launched, length within 0.9-1.1x the
+                backbone, >= 90% of the reads accepted in the last iteration
+            (c) and (d) print the align pass's time split (probe anchoring,
+            each kernel with its fetch, band construction, run-length
+            encoding, align_strings, the -a/-V writer)
 
-The last lines are one JSON object of kernel results, the card's name and
-power limit, and {"ok": true, "device": {...}}.
+The last lines are one JSON object of kernel results (all seven kernels,
+each launched on the main path: K1-K3 in phase 5, segdp in 6 (c), the
+whole-read DPs in 7 (c) and (d)), the card's name and power limit, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -65,6 +88,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GENOME_LEN = 4_600_000      # scripts/sim_ecoli.py
 COVERAGE = 18
 CNS_CUT = 2_000_000         # bp of the E. coli layout that phase 6 (c) polishes
+WR_CUT = 1_000_000          # bp of it that phase 7 (c) and (d) align whole
 GOLD = os.path.join(ROOT, "tests", "goldens")
 I32_MAX = (1 << 31) - 1
 # H100 SXM peaks for a kernel's bound: HBM3 at 3.35 TB/s (NVIDIA's data
@@ -74,6 +98,10 @@ I32_MAX = (1 << 31) - 1
 HBM_BPS = 3.35e12
 INT32_OPS = 132 * 64 * 1.98e9
 SEGDP_OPS_PER_CELL = 12   # int32 operations of one DP cell, at the least
+# the same for the whole-read DPs: banded (two candidates, their max and
+# compare, the gap scan's max, its compare) and the affine refines (three
+# lanes; 5q adds its cost selects)
+OPS_PER_CELL = {"banded": 10, "refine": 12, "refine5q": 14}
 
 
 def say(msg):
@@ -324,6 +352,7 @@ def phase_kernels(dev):
     del pay3, lib
     del key, pay, aux, eout, pout, cnt_c, args, got, ref
     results["segdp"] = phase_segdp(dev)
+    results.update(phase_wholeread_kernels(dev))
     return results
 
 
@@ -396,6 +425,172 @@ def phase_segdp(dev):
             f"{t['bound_ms']:.3f} ms ({t['bound_by']}), share "
             f"{t['share']:.3f}, equal (score, b_beg, b_end, moves)")
     return dict(t, max_abs_err=max(errs))
+
+
+def _wr_reads(rng, B, LA, W, err=0.13):
+    """B reads against their consensus windows, as the whole-read align
+    pass gives them: read k is its window from an offset below W with err
+    of its bases deleted, inserted and substituted (a third each), every
+    fourth read LA long and the others LA/2 to LA.  Returns (a, b, alen,
+    blen, src): src[k][x] is the window column read base x came from."""
+    import numpy as np
+
+    LB = LA + LA // 8 + 2 * W
+    a = np.full((B, LA), 4, np.uint8)
+    b = np.full((B, LB), 4, np.uint8)
+    alen = np.zeros(B, np.int32)
+    blen = np.zeros(B, np.int32)
+    srcs = []
+    for k in range(B):
+        win = rng.integers(0, 4, LB, dtype=np.uint8)
+        src = np.arange(int(rng.integers(0, W)), LB)
+        src = src[rng.random(src.size) >= err / 3]
+        src = np.repeat(src, 1 + (rng.random(src.size) < err / 3))
+        read = win[src]
+        ins = np.zeros(src.size, bool)
+        ins[1:] = src[1:] == src[:-1]
+        read[ins] = rng.integers(0, 4, int(ins.sum()))
+        sub = rng.random(read.size) < err / 3
+        read[sub] = (read[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+        n = min(LA if k % 4 == 0 else int(rng.integers(LA // 2, LA + 1)),
+                read.size)
+        a[k, :n] = read[:n]
+        alen[k] = n
+        blen[k] = min(LB, int(src[n - 1]) + 1 + int(rng.integers(0, W)))
+        b[k, :blen[k]] = win[:blen[k]]
+        srcs.append(src[:n])
+    return a, b, alen, blen, srcs
+
+
+def _wr_inputs(kind, B, LA, W, seed):
+    """Inputs of one whole-read kernel: banded (semiglobal, band from
+    anchors every 100 rows), refine (global from the read's first window
+    column to its last, band along the true path, as band_from_cigar of
+    the true CIGAR gives it) or refine5q (the same with five seeded
+    tracks)."""
+    import numpy as np
+
+    from smartdenovo_tpu_torch.ops.banded import make_band_centers
+
+    rng = np.random.default_rng(seed)
+    a, b, alen, blen, srcs = _wr_reads(rng, B, LA, W)
+    if kind == "banded":
+        anchors = [list(zip(range(0, len(s), 100), s[::100].tolist()))
+                   for s in srcs]
+        return a, b, alen, blen, make_band_centers(anchors, alen, blen, LA, W)
+    base = np.zeros((B, LA + 1), np.int32)
+    b2 = np.full_like(b, 4)
+    for k, s in enumerate(srcs):
+        off = int(s[0])
+        blen[k] = int(s[-1]) + 1 - off
+        b2[k, :blen[k]] = b[k, off:off + blen[k]]
+        c = np.concatenate([[0], s - off + 1, np.full(LA - len(s), blen[k])])
+        base[k] = np.maximum.accumulate(np.clip(c - W // 2, 0, blen[k]))
+    out = (a, b2, alen, blen, base)
+    if kind == "refine5q":
+        q = [rng.integers(3, 41, (B, LA)).astype(np.int32) for _ in range(3)]
+        q += [rng.integers(0, 4, (B, LA)).astype(np.int32) for _ in range(2)]
+        out = (a, b2, *q, alen, blen, base)
+    return out
+
+
+def _call_wr(kind, args, LA, W):
+    from smartdenovo_tpu_torch.ops import banded, refine, refine5q
+
+    if kind == "banded":
+        return banded.banded_align(*args, LA=LA, W=W, gap_a=-2, gap_b=-3,
+                                   semiglobal_b=True)
+    if kind == "refine":
+        return refine.refine_banded_affine(*args, LA=LA, W=W, open_i=-2,
+                                           open_d=-3)
+    return refine5q.refine5q_banded(*args, LA=LA, W=W)
+
+
+def _wr_equal(kind, got, exp, alen):
+    """(equal, max_abs_err) of a whole-read kernel against its plain
+    version: every output, dirs on the rows 0..alen it writes."""
+    ndirs = 2 if kind == "banded" else 1
+    err = 0
+    for n, (g, e) in enumerate(zip(got, exp)):
+        if n == ndirs:
+            for k, ln in enumerate(alen.tolist()):
+                err = max(err, max_abs(g[k, :ln + 1], e[k, :ln + 1]))
+        else:
+            err = max(err, max_abs(g, e))
+    return err == 0, err
+
+
+def phase_wholeread_kernels(dev):
+    """banded, refine and refine5q at a shape the whole-read align pass
+    gives them on the E. coli reads of 7 (c) and (d) (its _pad_tier and
+    refine's power-of-two LA pad a batch of 64 to 16,384 or 32,768 rows):
+    B = 64 reads, LA = 32,768, W =
+    256 (refine W = 128, 5q with its tracks).  Each is timed there, each
+    call alone (median of 10), and held equal to its plain version on the
+    same inputs, whose one call is timed too (its cost is a Python loop
+    over rows and traceback steps, so about a minute a kernel).  The bound
+    counts the cells of this run's reads (sum of alen x W) at
+    OPS_PER_CELL int32 operations, against the bytes of the inputs, the
+    direction plane's rows 0..alen and the moves."""
+    import torch
+
+    res = {}
+    B, LA = 64, 32768
+    for kind, W, seed in (("banded", 256, 31), ("refine", 128, 32),
+                          ("refine5q", 128, 33)):
+        args = [torch.from_numpy(x).to(dev)
+                for x in _wr_inputs(kind, B, LA, W, seed)]
+        alen = args[-3]
+        got = _call_wr(kind, args, LA, W)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: _call_wr(kind, args, LA, W))
+        cells = int(alen.sum()) * W
+        T = 2 * (LA + 1) + W + (0 if kind == "banded" else 4)
+        nbytes = (sum(t.numel() * t.element_size() for t in args)
+                  + int((alen + 1).sum()) * W + T * B + 12 * B)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        exp = _plain_wr(kind, args, LA, W)
+        ev[1].record()
+        ev[1].synchronize()
+        pms = ev[0].elapsed_time(ev[1])
+        ok, err = _wr_equal(kind, got, exp, alen)
+        if not ok:
+            raise AssertionError(f"{kind} differs from its plain version at "
+                                 f"LA {LA} (max abs err {err})")
+        del args, got, exp
+        t = timing(ms, pms, nbytes, OPS_PER_CELL[kind] * cells)
+        say(f"kernel {kind} B={B} LA={LA} W={W} ({cells} cells): "
+            f"{t['ms']:.3f} ms, plain {pms:.1f} ms, bound {t['bound_ms']:.3f} "
+            f"ms ({t['bound_by']}), share {t['share']:.4f}, equal (max abs "
+            f"err {err})")
+        res[kind] = dict(t, max_abs_err=err, shape=f"B {B}, LA {LA}, W {W}")
+    return res
+
+
+def _plain_wr(kind, args, LA, W):
+    """The plain version of a whole-read kernel on the same device
+    tensors (the wrappers take it only for CPU tensors)."""
+    from smartdenovo_tpu_torch.ops import banded, refine, refine5q, traceback
+
+    if kind == "banded":
+        a, b, alen, blen, base = args
+        s, e, d = banded.banded_align_plain(
+            *args, LA=LA, W=W, match=2, mismatch=-5, gap_a=-2, gap_b=-3,
+            semiglobal_b=True)
+        return (s, e, d) + traceback.tb_banded(d, base, alen, e,
+                                               T=2 * (LA + 1) + W)
+    if kind == "refine":
+        s, d = refine.refine_banded_affine_plain(
+            *args, LA=LA, W=W, match=2, mismatch=-5, open_i=-2, open_d=-3,
+            ext=-1)
+    else:
+        s, d = refine5q.refine5q_banded_plain(
+            *args, LA=LA, W=W, qclp=refine5q.QCLP, qmis=refine5q.QMIS,
+            qdel=refine5q.QDEL, qext=refine5q.QEXT)
+    alen, blen, base = args[-3:]
+    return s, d, traceback.tb_refine(d, base, alen, blen,
+                                     T=2 * (LA + 1) + W + 4)
 
 
 # ---------------------------------------------------------------------------
@@ -730,7 +925,7 @@ def phase_cns(tmp, cut):
                              f"{L} vs backbone {bb}, {aligned} of {kept} "
                              f"reads accepted")
     time_probe(seen["args"], seen["calls"])
-    return launches
+    return launches, idents
 
 
 def time_probe(args, calls):
@@ -751,6 +946,169 @@ def time_probe(args, calls):
     say(f"probe anchoring (torch ops) B={B} LA={LA} LW={LW}: {ms:.3f} ms, "
         f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}), share "
         f"{t['share']:.4f}; {calls} calls in the cut's cns")
+
+
+def _check_aln(path):
+    """The -a records of one unitig, checked as tests/test_cns.py:90-105
+    does; returns (records, MATRIX rows, columns of the aligned rows,
+    records whose mat + mis + ins + dl is not their Q row's length)."""
+    with open(path) as fh:
+        text = fh.read().splitlines()
+    recs = [ln for ln in text if ln and ln[0] not in "QTM" and "\t" in ln
+            and not ln.startswith("MATRIX")]
+    qrows = [ln for ln in text if ln.startswith("Q\t")]
+    trows = [ln for ln in text if ln.startswith("T\t")]
+    mrows = [ln for ln in text if ln.startswith("M\t")]
+    mats = [ln for ln in text if ln.startswith("MATRIX\t")]
+    if not len(recs) == len(qrows) == len(trows) == len(mrows):
+        raise AssertionError(f"{path}: {len(recs)} records, {len(qrows)} Q, "
+                             f"{len(trows)} T, {len(mrows)} M rows")
+    bad = 0
+    for r, q, t, m in zip(recs, qrows, trows, mrows):
+        cols = r.split("\t")
+        mat, mis, ins, dl = (int(c) for c in cols[12:16])
+        if (len(cols) != 16 or len(q) != len(t) or len(q) != len(m)
+                or mat + mis + ins + dl != len(q) - 2
+                or mat + mis + ins != int(cols[4]) - int(cols[3])
+                or mat + mis + dl != int(cols[9]) - int(cols[8])):
+            bad += 1
+    return recs, mats, bad
+
+
+def phase_wholeread(tmp, cut, seg_idents, dev="cuda"):
+    """The whole-read consensus engine on `dev` (seg_engine=False, cns
+    -a/-V, f5q units); returns the launches of banded, refine and refine5q in (c)
+    and (d), read with the counts set to 0 just before (c)."""
+    import numpy as np
+    import torch
+
+    from smartdenovo_tpu_torch.data.readbank import encode_f5q
+    from smartdenovo_tpu_torch.kernels import _build
+    from smartdenovo_tpu_torch.pipeline import cns
+
+    # (a) the golden layout, six iterations, with -a/-V
+    lay = os.path.join(GOLD, "smoke.ref.lay")
+    units = cns.parse_lay_file(lay)
+    aln = os.path.join(tmp, "wr_smoke.aln")
+    p = cns.CnsParams(n_iter=6, seg_engine=False)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = dict(cns.run_cns(units, p, aln_path=aln, vmsa=2.05, device=dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    la = {k: _build.LAUNCHES[k] for k in ("banded", "refine", "refine5q")}
+    ref = read_fasta(os.path.join(GOLD, "smoke.ref.cns"))
+    rows = []
+    for u in units:
+        got = cns.codes_to_seq(res[u.name])
+        ib = identity(cns.codes_to_seq(cns._gen_backbone(u)), ref[u.name])
+        iw = identity(got, ref[u.name])
+        rows.append(f"{u.name} {iw:.5f} (segment engine {seg_idents[u.name]:.5f}"
+                    f", backbone {ib:.5f}; {len(got)} bp)")
+        if iw <= ib:
+            raise AssertionError(f"whole-read {u.name}: identity {iw:.5f} not "
+                                 f"above its backbone's {ib:.5f}")
+    recs, mats, bad = _check_aln(aln)
+    nreads = sum(len(u.reads) for u in units)
+    say(f"whole-read golden -n 6 -a -V 2.05: {wall:.1f} s, launches {la}; "
+        f"identity vs smoke.ref.cns: " + ", ".join(rows))
+    say(f"whole-read golden .aln: {len(recs)} records of {nreads} reads, "
+        f"{len(mats)} MATRIX rows, {bad} inconsistent")
+    on_card = dev != "cpu"     # the kernels launch only for cuda tensors
+    if bad or len(recs) < 0.8 * nreads or len(mats) != len(recs) or (
+            on_card and not (la["banded"] and la["refine"])):
+        raise AssertionError("whole-read golden .aln records or launches")
+
+    # (b) one golden unitig, one iteration, cuda against cpu
+    unit = min(units, key=lambda u: len(u.reads))
+    p1 = cns.CnsParams(n_iter=1, seg_engine=False)
+    outs, walls = {}, {}
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        c, offs = cns.consensus_unitig(unit, p1, return_offs=True, device=d)
+        buf = io.StringIO()
+        cns.write_final_alignments(buf, unit, offs, c, p1, vmsa=2.05,
+                                   device=d)
+        outs[d] = (c, offs, buf.getvalue())
+        walls[d] = time.perf_counter() - t0
+    g, c = outs[dev], outs["cpu"]
+    if not (np.array_equal(g[0], c[0]) and g[1] == c[1] and g[2] == c[2]):
+        raise AssertionError(f"whole-read {unit.name}: cuda and cpu differ")
+    say(f"whole-read {unit.name} ({len(unit.reads)} reads) -n 1 + -a -V: {dev} "
+        f"{walls[dev]:.1f} s, cpu {walls['cpu']:.1f} s; {len(g[0])} bp, "
+        f"offsets and {len(g[2])} bytes of .aln equal")
+
+    # (c) cns -n 1 -a -V on the E. coli layout cut at `cut`
+    lay = os.path.join(tmp, "ecoli_wr.lay")
+    kept, total = _cut_lay(os.path.join(tmp, "ecoli.dmo.lay"), lay, cut)
+    unit = cns.parse_lay_file(lay)[0]
+    bb = len(cns._gen_backbone(unit))
+    aln = lay + ".aln"
+    _build.reset_launches()
+    log, wall = _run_cli(["cns", "-i", lay, "-o", lay + ".cns", "-n", "1",
+                          "-a", aln, "-V", "2.05", "--device", dev])
+    recs, mats, bad = _check_aln(aln)
+    iters = re.findall(r"iter (\d+): (\d+) reads aligned, len (\d+) -> (\d+)",
+                       log)
+    say(f"whole-read E. coli cut (offsets < {cut}) cns -n 1 -a -V 2.05: "
+        f"{kept} of {total} reads, backbone {bb} bp -> "
+        f"{iters[-1][3] if iters else 0} bp; wall {wall:.1f} s; "
+        f"{len(recs)} records, {len(mats)} MATRIX rows, {bad} inconsistent; "
+        f"launches banded {_build.LAUNCHES['banded']} refine "
+        f"{_build.LAUNCHES['refine']}")
+    _say_split("(c)", log)
+    if bad or len(recs) < 0.9 * kept:
+        raise AssertionError(f"whole-read cut: {len(recs)} records of {kept} "
+                             f"reads, {bad} inconsistent")
+
+    # (d) the same cut with seeded synthetic f5q tracks in column 7
+    rng = np.random.default_rng(5)
+    qlay = os.path.join(tmp, "ecoli_wr_f5q.lay")
+    with open(lay) as src, open(qlay, "w") as dst:
+        for line in src:
+            cols = line.rstrip("\n").split("\t")
+            if len(cols) >= 6 and not line.startswith(">"):
+                L = len(cols[5])
+                q = np.zeros((7, L), np.uint8)
+                q[0] = rng.integers(10, 40, L)
+                q[1:4] = rng.integers(5, 30, (3, L))
+                q[4] = rng.integers(10, 40, L)
+                q[5:7] = rng.integers(0, 4, (2, L))
+                line = "\t".join(cols[:6] + [encode_f5q(q)]) + "\n"
+            dst.write(line)
+    log, wall = _run_cli(["cns", "-i", qlay, "-o", qlay + ".cns", "-n", "2",
+                          "--device", dev])
+    launches = dict(_build.LAUNCHES)
+    iters = re.findall(r"iter (\d+): (\d+) reads aligned, len (\d+) -> (\d+)",
+                       log)
+    res = read_fasta(qlay + ".cns")
+    L = len(next(iter(res.values()))) if res else 0
+    aligned = int(iters[-1][1]) if iters else 0
+    say(f"whole-read E. coli cut with f5q tracks cns -n 2: wall {wall:.1f} s; "
+        f"backbone {bb} bp -> {L} bp; reads accepted per iteration "
+        f"{[int(x[1]) for x in iters]} of {kept}; launches {launches}")
+    _say_split("(d)", log)
+    if (on_card and not launches["refine5q"]) or not 0.9 * bb <= L <= 1.1 * bb \
+            or aligned < 0.9 * kept:
+        raise AssertionError(f"whole-read f5q cut: refine5q launches "
+                             f"{launches['refine5q']}, length {L} vs {bb}, "
+                             f"{aligned} of {kept} accepted")
+    return {k: launches[k] for k in ("banded", "refine", "refine5q")}
+
+
+def _say_split(tag, log):
+    """The align pass's time split (host clock; each kernel with the fetch
+    of its outputs) as the consensus driver logs it: per iteration, for
+    the -a/-V pass (whose "writer" is the record writer after its align
+    pass), and summed over all of them."""
+    lines = re.findall(r"cns \S+ (iter \d+ align|-a/-V) split: (.*)", log)
+    total: dict = {}
+    for what, ln in lines:
+        say(f"whole-read {tag} {what} split: {ln}")
+        for k, v in re.findall(r"(\w+) ([0-9.]+)s", ln):
+            total[k] = total.get(k, 0.0) + float(v)
+    parts = {k: round(v, 3) for k, v in sorted(total.items())}
+    say(f"whole-read {tag} align split in all (s): {json.dumps(parts)}")
 
 
 def main() -> int:
@@ -789,7 +1147,8 @@ def main() -> int:
         tmp = args.workdir or stack.enter_context(tempfile.TemporaryDirectory())
         os.makedirs(tmp, exist_ok=True)
         launches = phase_asm(tmp)
-        launches["segdp"] = phase_cns(tmp, CNS_CUT)
+        launches["segdp"], idents = phase_cns(tmp, CNS_CUT)
+        launches.update(phase_wholeread(tmp, WR_CUT, idents))
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -801,10 +1160,25 @@ def main() -> int:
                        "smartdenovo_tpu/ops/pexpand.py:131"),
            "segdp": ("smartdenovo_tpu_torch/csrc/segdp.cu",
                      "smartdenovo_tpu/ops/segdp.py:47 (jax.jit lax.scan, "
-                     "not Pallas)")}
+                     "not Pallas)"),
+           "banded": ("smartdenovo_tpu_torch/csrc/banded.cu",
+                      "smartdenovo_tpu/ops/banded.py:33 and "
+                      "smartdenovo_tpu/ops/traceback.py:29 (jax.jit lax.scan, "
+                      "not Pallas)"),
+           "refine": ("smartdenovo_tpu_torch/csrc/refine.cu",
+                      "smartdenovo_tpu/ops/refine.py:49 and "
+                      "smartdenovo_tpu/ops/traceback.py:58 (jax.jit lax.scan, "
+                      "not Pallas)"),
+           "refine5q": ("smartdenovo_tpu_torch/csrc/refine.cu",
+                        "smartdenovo_tpu/ops/refine5q.py:47 and "
+                        "smartdenovo_tpu/ops/traceback.py:58 (jax.jit "
+                        "lax.scan, not Pallas)")}
     kernels = [dict(name=k, route="cuda", source=src[k][0],
                     replaces=src[k][1], launches=launches[k], **kres[k])
-               for k in ("sseg", "jpost", "pexpand", "segdp")]
+               for k in src]
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"the main path did not launch {idle}")
     say(json.dumps({"kernels": kernels}))
     say(gpu_line())
     say(json.dumps({"ok": True, "device": {

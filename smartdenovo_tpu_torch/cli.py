@@ -2,7 +2,7 @@
 
   python -m smartdenovo_tpu_torch.cli asm reads.fa -p PFX [-c 1]  smartdenovo.pl, dmo
   python -m smartdenovo_tpu_torch.cli zmo -i reads.fa -o out.ovl   wtzmo, dot-matrix engine
-  python -m smartdenovo_tpu_torch.cli cns -i PFX.dmo.lay -o PFX.cns  wtcns, segment engine
+  python -m smartdenovo_tpu_torch.cli cns -i PFX.dmo.lay -o PFX.cns  wtcns [-a x.aln -V 2.05]
 
 All take --device (default cuda); a CUDA device that is not there is an
 error, never a silent run on the CPU.  Stage files keep the reference
@@ -57,14 +57,15 @@ def _add_asm(sub):
 
 
 def _add_cns(sub):
-    q = sub.add_parser("cns", help="consensus (wtcns, segment engine)")
+    q = sub.add_parser("cns", help="consensus (wtcns)")
     q.add_argument("-i", "--layout", required=True)
     q.add_argument("-o", "--output", default="-")
     q.add_argument("-n", "--iterations", type=int, default=6)
     q.add_argument("-a", "--aln-out", default=None,
-                   help="final alignments (wtcns -a): not ported yet")
+                   help="align reads against final consensus, write here (wtcns -a)")
     q.add_argument("-V", "--vmsa", type=float, default=None,
-                   help="variant matrix (wtcns -V): not ported yet")
+                   help="variant matrix in -a output; 2.05 = min count 2, "
+                        "min freq 0.05 (wtcns -V)")
     q.add_argument("--device", default="cuda")
 
 
@@ -149,13 +150,10 @@ def main(argv=None):
     if args.cmd == "cns":
         from .pipeline.cns import CnsParams, parse_lay_file, run_cns, write_cns
 
-        if args.aln_out is not None or args.vmsa is not None:
-            raise NotImplementedError(
-                "cns -a/-V (final alignments) is not ported yet: they need "
-                "the whole-read engine (ROADMAP queue 1 item 10)")
         units = parse_lay_file(args.layout)
         t0 = time.time()
         res = run_cns(units, CnsParams(n_iter=args.iterations),
+                      aln_path=args.aln_out, vmsa=args.vmsa,
                       device=args.device)
         log("stage cns: %.3fs", time.time() - t0)
         if args.output == "-":

@@ -32,7 +32,8 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-LAUNCHES = {"sseg": 0, "jpost": 0, "pexpand": 0, "segdp": 0}
+LAUNCHES = {"sseg": 0, "jpost": 0, "pexpand": 0, "segdp": 0, "banded": 0,
+            "refine": 0, "refine5q": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -63,6 +64,14 @@ _SIGNATURES = {
     "segdp_align_tb": [_P, _P, _P, _P, _P] + [_I32] * 11 + [_P] * 6,
     # SEGR, LBW, W, segments a block, blocks an SM
     "segdp_occupancy": [_I32, _I32, _I32, _P, _P],
+    # a, b, alen, blen, base, B, LA, LB, W, T, match, mismatch, gap_a,
+    # gap_b, semiglobal_b, dirs, score, end_col, mvs, j_final, stream
+    "banded_align_tb": [_P] * 5 + [_I32] * 10 + [_P] * 6,
+    # a, b, alen, blen, base, subqv, insqv, delqv, subtag, deltag (0 for
+    # the affine costs), B, LA, LB, W, T, q5, five costs (match, mismatch,
+    # open_i, open_d, ext or qclp, qmis, qdel, qext, 0), dirs, score, mvs,
+    # stream
+    "refine_align_tb": [_P] * 10 + [_I32] * 11 + [_P] * 4,
 }
 _RESTYPES = {"sseg_scratch_ints": _I64, "jpost_scratch_ints": _I64,
              "pexpand_scratch_ints": _I64}   # the others return an int

@@ -1,23 +1,30 @@
-"""Consensus stage, segment engine (port of smartdenovo_tpu/pipeline/cns.py,
-the equivalent of the reference `wtcns`, DAGCon-style).
+"""Consensus stage (port of smartdenovo_tpu/pipeline/cns.py, the
+equivalent of the reference `wtcns`, DAGCon-style).
 
 Per unitig: backbone = offset-concatenation of the layout's Y reads; then
 `n_iter` rounds of
-  1. probe-anchor every read lacking a column map to the current
-     consensus (`_probe_anchor_device`, plain torch ops on the device),
-  2. cut every read into SEGR-row segments and align them all against
-     their consensus windows, Bc segments per call of
-     `ops.segdp.seg_align_tb` (the CUDA kernel csrc/segdp.cu on the card),
-     and stitch each read's segment alignments on the host,
-  3. insert the accepted alignments best-score-first into the native DAG
+  1. align every read to the current consensus, with one of two engines:
+     - the segment engine (the default): probe-anchor every read lacking
+       a column map (`_probe_anchor_device`, plain torch ops on the
+       device), cut every read into SEGR-row segments, align them all
+       against their consensus windows, Bc segments per call of
+       `ops.segdp.seg_align_tb` (csrc/segdp.cu on the card), and stitch
+       each read's segment alignments on the host;
+     - the whole-read engine (units with f5q quality tracks, or
+       `seg_engine=False`): probe-anchor batches of whole reads, align
+       each batch along its anchor band with `ops.banded.banded_align`
+       (csrc/banded.cu), then refine around that alignment with the
+       affine `ops.refine` or, for reads with f5q tracks, the
+       quality-aware `ops.refine5q` DP (both csrc/refine.cu);
+  2. insert the accepted alignments best-score-first into the native DAG
      (the port's copy of native/dagcns.cpp, through utils/native.py),
      merge nodes, take the consensus and remap read offsets.
+`run_cns(aln_path=..., vmsa=...)` (cns -a/-V) then aligns every read to
+the final consensus with the whole-read engine and writes the records.
 
-The host parts (layout parsing, segmenting, stitching, the DAG loop)
-are copies of the JAX package's, held equal to their sources by
-tests/test_torch_cns.py.  The whole-read engine (units with f5q quality
-tracks, `seg_engine=False`, the final alignments of `cns -a/-V`) is not
-ported yet and raises NotImplementedError (ROADMAP queue 1 item 10).
+The host parts (layout parsing, segmenting, stitching, the DAG loop, the
+-a/-V writer) are copies of the JAX package's, held equal to their
+sources by tests/test_torch_cns.py and tests/test_torch_host_copies.py.
 """
 
 from __future__ import annotations
@@ -32,10 +39,12 @@ from ..data.readbank import codes_to_seq, revcomp_codes
 from ..utils.log import log
 from ..utils.native import DagCns
 
+from ..ops.banded import (align_strings, banded_align, make_band_centers,
+                          traceback_banded)
+from ..ops.refine import refine_alignment_batch
+from ..ops.refine5q import refine5q_alignment_batch
 from ..ops.segdp import seg_align_tb, unpack_moves
-
-_WHOLE_READ = ("the whole-read consensus engine is not ported yet (ROADMAP "
-               "queue 1 item 10)")
+from ..utils.timing import timed
 
 # base letter byte -> 2-bit code (4 = other), reference base_bit_table
 _BASE_BIT = np.full(256, 4, np.uint8)
@@ -288,6 +297,124 @@ def _anchor_reads(reads, windows, p: CnsParams, doffs, device):
         keep = np.abs(d - med) <= 512      # repeat-hit outlier filter
         anchors.append(sorted(zip(xs[keep].tolist(), ys[keep].tolist())))
     return anchors
+
+
+def _split_str(split: dict) -> str:
+    """The align split as logged: `part seconds` pairs by part name."""
+    return " ".join(f"{k} {v:.3f}s" for k, v in sorted(split.items()))
+
+
+def _align_pass(unit: LayUnitig, offs, cns, p: CnsParams, ga: int, gb: int,
+                *, device, split: dict | None = None):
+    """Align every layout read to the current consensus, batch_reads whole
+    reads per call of the banded DP on `device`.
+
+    Yields (rid, score, beg, end, ra, rb) per read that aligned, where
+    beg/end are cns coordinates and ra/rb the aligned code rows (4 = gap),
+    ra = read, rb = consensus.  Applies the affine refine pass when
+    p.refine (reference kswx_refine_alignment, wtcns.c:372-381); reads
+    with f5q tracks get the quality-aware refine (wtcns.c:380).  The JAX
+    package's pass, with the traceback inside the DP's call; split: a dict
+    the host seconds of each part are added to (utils/timing.py).
+    """
+    nreads = len(unit.reads)
+    for b0 in range(0, nreads, p.batch_reads):
+        ridx = list(range(b0, min(nreads, b0 + p.batch_reads)))
+        reads = [unit.reads[i] for i in ridx]
+        wstarts = []
+        windows = []
+        for i in ridx:
+            ws = max(0, offs[i] - p.win_margin)
+            we = min(len(cns), offs[i] + len(unit.reads[i]) + p.win_margin)
+            if we <= ws:
+                ws, we = 0, min(len(cns), len(unit.reads[i]) + 2 * p.win_margin)
+            wstarts.append(ws)
+            windows.append(cns[ws:we])
+        doffs = [offs[i] - ws for i, ws in zip(ridx, wstarts)]
+        with timed(split, "probe"):
+            anchors = _anchor_reads(reads, windows, p, doffs, device)
+        LA = _pad_tier(max(len(r) for r in reads))
+        LBm = max(len(w) for w in windows)
+        B = len(reads)
+        a = np.full((B, LA), 4, np.uint8)
+        b = np.full((B, LBm), 4, np.uint8)
+        alen = np.zeros(B, np.int32)
+        blen = np.zeros(B, np.int32)
+        for i, (r, w) in enumerate(zip(reads, windows)):
+            a[i, : len(r)] = r
+            alen[i] = len(r)
+            b[i, : len(w)] = w
+            blen[i] = len(w)
+        with timed(split, "band"):
+            base = make_band_centers(anchors, alen, blen, LA, p.band)
+        with timed(split, "banded"):
+            score, end_col, _dirs, mvs, j_final = banded_align(
+                *(torch.from_numpy(x).to(device)
+                  for x in (a, b, alen, blen, base)),
+                LA=LA, W=p.band, match=p.match, mismatch=p.mismatch,
+                gap=p.gap, gap_a=ga, gap_b=gb, semiglobal_b=True)
+            del _dirs
+            score = score.cpu().numpy().copy()  # writable: refine overwrites
+            end_col = end_col.cpu().numpy()
+            mvs = mvs.cpu().numpy()
+            j_final = j_final.cpu().numpy()
+        with timed(split, "rle"):
+            cigs, b_begs = traceback_banded(mvs, j_final)
+        if p.refine:
+            # affine re-alignment around the prior CIGAR (reference
+            # kswx_refine_alignment, wtcns.c:372-381): canonical gap
+            # placement so DAG votes stack on the same columns; reads
+            # with f5q tracks get the quality-aware variant (wtcns.c:380)
+            groups: dict = {"plain": ([], [], []), "qv": ([], [], [])}
+            quals = unit.quals if (p.use_qv and unit.quals) else None
+            for i in range(B):
+                ops, counts = cigs[i]
+                if not ops:
+                    continue
+                seg_b = b[i][int(b_begs[i]): int(end_col[i])]
+                if int(alen[i]) == 0 or seg_b.size == 0:
+                    continue
+                qv = quals[ridx[i]] if quals is not None else None
+                g = groups["qv" if qv is not None else "plain"]
+                g[0].append((a[i][: int(alen[i])], seg_b))
+                g[1].append((ops, counts) if qv is None else
+                            ((ops, counts), qv))
+                g[2].append(i)
+            rpairs, rcigs, rmap = groups["plain"]
+            # iteration-dependent refine opens (reference wtcns.c:381:
+            # iter? I : O for both the main align and the refine)
+            refined = refine_alignment_batch(
+                rpairs, rcigs, W_base=p.refine_w, match=p.match,
+                mismatch=p.mismatch, open_i=ga,
+                open_d=gb, ext=p.refine_ext, device=device, split=split)
+            for i, r in zip(rmap, refined):
+                cigs[i] = (r["ops"], r["counts"])
+                # the reference sorts DAG insertion by the REFINED affine
+                # score (wtcns.c:381 sets kswx from the refine result and
+                # :551 sorts by it) — report it, not the banded score
+                score[i] = r["score"]
+            qpairs, qmeta, qmap = groups["qv"]
+            if qpairs:
+                # the JAX package keeps the banded score of f5q reads (its
+                # known fault, ROADMAP queue 3); copied, to stay equal
+                refined = refine5q_alignment_batch(
+                    qpairs, [m[1] for m in qmeta], [m[0] for m in qmeta],
+                    W_base=p.refine_w, device=device, split=split)
+                for i, r in zip(qmap, refined):
+                    cigs[i] = (r["ops"], r["counts"])
+        for i in range(B):
+            ops, counts = cigs[i]
+            if not ops:
+                continue
+            # build alignment strings: row a = read, row b = window
+            with timed(split, "strings"):
+                ra, rb_ = align_strings(a[i], b[i][int(b_begs[i]):], ops,
+                                        counts)
+            if ra.shape[0] == 0:
+                continue
+            beg = wstarts[i] + int(b_begs[i])
+            end = wstarts[i] + int(end_col[i])
+            yield ridx[i], int(score[i]), beg, end, ra, rb_
 
 
 # ---- segment-parallel align pass (ops/segdp.py) --------------------------
@@ -643,7 +770,7 @@ def consensus_unitig(unit: LayUnitig, p: CnsParams | None = None,
     resumes at the next iteration instead of restarting — genome-scale
     failure recovery (SURVEY §5.3).
     It takes the JAX package's checkpoints as well.  device: where the
-    probe anchoring and the segment DP run.
+    probe anchoring and the DPs run.
     """
     import os
 
@@ -657,9 +784,7 @@ def consensus_unitig(unit: LayUnitig, p: CnsParams | None = None,
     # (the quality-aware refine runs on the whole-read path)
     use_seg = p.seg_engine and not (p.use_qv and unit.quals
                                     and any(q is not None for q in unit.quals))
-    if not use_seg:
-        raise NotImplementedError(_WHOLE_READ)
-    st = _SegState(unit)
+    st = _SegState(unit) if use_seg else None
     # convergence guard: agreement = total read bases matching the current
     # backbone, a penalty-independent quality metric.  If an iteration's
     # backbone agrees with the reads less than the previous one did, the
@@ -676,7 +801,8 @@ def consensus_unitig(unit: LayUnitig, p: CnsParams | None = None,
         prev_agree = float(z["prev_agree"])
         prev_offs = [int(v) for v in z["prev_offs"]]
         prev_cns = z["prev_cns"] if z["prev_cns"].size else None
-        st.colmap16 = _load_colmaps(z["colmap16"])
+        if st is not None:
+            st.colmap16 = _load_colmaps(z["colmap16"])
         log("cns %s: resumed at iteration %d from %s", unit.name,
             start_it + 1, ckpt)
     for it in range(start_it, p.n_iter):
@@ -689,15 +815,20 @@ def consensus_unitig(unit: LayUnitig, p: CnsParams | None = None,
         # reference wtcns: -O in round 1, asymmetric -I/-D afterwards
         ga = p.gap if it == 0 else p.gap_ins
         gb = p.gap if it == 0 else p.gap_del
-        # seed (idempotent) BEFORE the align pass so the column maps can
-        # be checkpointed separately
-        _seed_colmaps(unit, st, offs, cns, p, device=device)
-        if ckpt:
-            _save_cns_ckpt(ckpt, it, cns, offs, prev_agree, prev_offs,
-                           prev_cns, st)
+        if use_seg:
+            # seed (idempotent) BEFORE the align pass so the column maps
+            # can be checkpointed separately
+            _seed_colmaps(unit, st, offs, cns, p, device=device)
+            if ckpt:
+                _save_cns_ckpt(ckpt, it, cns, offs, prev_agree, prev_offs,
+                               prev_cns, st)
         t_seed = time.perf_counter()
-        for rid, sc, beg, end, ra, rb_ in _seg_align_pass(
-                unit, st, offs, cns, p, ga, gb, device=device):
+        split: dict = {}
+        itr = (_seg_align_pass(unit, st, offs, cns, p, ga, gb, device=device)
+               if use_seg else
+               _align_pass(unit, offs, cns, p, ga, gb, device=device,
+                           split=split))
+        for rid, sc, beg, end, ra, rb_ in itr:
             m = int(np.sum((ra == rb_) & (ra != 4)))
             # reference acceptance (wtcns.c:347-357): mat >= min_id * aln
             # AND mat >= min_id * projected read overlap — the aln-columns
@@ -732,12 +863,16 @@ def consensus_unitig(unit: LayUnitig, p: CnsParams | None = None,
             for i in range(nreads):
                 o = min(max(0, offs[i]), len(mp) - 1)
                 offs[i] = int(mp[o])
-            st.remap(np.asarray(mp))
+            if st is not None:
+                st.remap(np.asarray(mp))
         log("cns %s iter %d: %d reads aligned, len %d -> %d, score %.1f",
             unit.name, it + 1, len(pending), len(cns), len(new_cns), dag_score)
         t_end = time.perf_counter()
         log("cns %s iter %d time: seed %.3fs align %.3fs dag %.3fs", unit.name,
             it + 1, t_seed - t_it, t_aln - t_seed, t_end - t_aln)
+        if not use_seg:
+            log("cns %s iter %d align split: %s", unit.name, it + 1,
+                _split_str(split))
         cns = new_cns
         if ckpt:
             _save_cns_ckpt(ckpt, it + 1, cns, offs, prev_agree, prev_offs,
@@ -752,18 +887,123 @@ def run_cns(units: list[LayUnitig], params: CnsParams | None = None,
             device="cuda"):
     """Consensus for all unitigs on `device`; returns list of (name, codes).
 
-    aln_path / vmsa (reference wtcns -a / -V) need the whole-read engine
-    and are not ported yet."""
-    if aln_path is not None or vmsa is not None:
-        raise NotImplementedError("cns -a/-V: " + _WHOLE_READ)
+    aln_path: write final read-vs-consensus alignments there (reference
+    wtcns -a, wtcns.c:586-722).  vmsa: also emit the variant MATRIX rows
+    (reference -V <cnt.freq>, e.g. 2.05 = min count 2, min freq 0.05).
+    """
     p = params or CnsParams()
     out = []
-    for unit in units:
-        cns = consensus_unitig(unit, p, device=device)
-        if not len(cns):
-            continue
-        out.append((unit.name, cns))
+    alnfh = open(aln_path, "w") if aln_path else None
+    try:
+        for unit in units:
+            cns, offs = consensus_unitig(unit, p, return_offs=True,
+                                         device=device)
+            if not len(cns):
+                continue
+            out.append((unit.name, cns))
+            if alnfh is not None:
+                split: dict = {}
+                write_final_alignments(alnfh, unit, offs, cns, p, vmsa=vmsa,
+                                       device=device, split=split)
+                log("cns %s -a/-V split: %s", unit.name, _split_str(split))
+    finally:
+        if alnfh is not None:
+            alnfh.close()
     return out
+
+
+_GAP_CHR = np.frombuffer(b"ACGT-", np.uint8)
+
+
+def _row_str(codes: np.ndarray) -> str:
+    return _GAP_CHR[np.clip(codes, 0, 4)].tobytes().decode()
+
+
+def write_final_alignments(fh, unit: LayUnitig, offs, cns, p: CnsParams,
+                           vmsa: float | None = None, margin: int = 3, *,
+                           device="cuda", split: dict | None = None):
+    """Reference wtcns -a output: per read, a 16-col record + Q/T/M rows;
+    with vmsa, per-column base tallies over interior match-run bases and
+    MATRIX rows at variant columns (wtcns.c:586-722).
+
+    vmsa encodes min_cnt.min_freq like the reference -V flag: 2.05 means
+    min_allele_count 2, min_allele_freq 0.05.
+    """
+    names = unit.rnames or [f"rd{i}" for i in range(len(unit.reads))]
+    cnsid = unit.name.split()[0]
+    ga, gb = p.gap_ins, p.gap_del
+    rows = []
+    for rid, sc, beg, end, ra, rb_ in _align_pass(unit, offs, cns, p, ga, gb,
+                                                  device=device, split=split):
+        rows.append((rid, sc, beg, end, ra, rb_))
+    t_writer = time.perf_counter()
+    if vmsa is not None:
+        min_cnt = int(vmsa)
+        min_freq = vmsa - min_cnt
+        bases = np.zeros((4, len(cns)), np.int32)
+    counted_rows = {}
+    for rid, sc, beg, end, ra, rb_ in rows:
+        m_col = (ra != 4) & (rb_ != 4)
+        mat = int(np.sum(m_col & (ra == rb_)))
+        mis = int(np.sum(m_col & (ra != rb_)))
+        ins = int(np.sum((ra != 4) & (rb_ == 4)))
+        dl = int(np.sum((ra == 4) & (rb_ != 4)))
+        aln = ra.shape[0]
+        qlen = len(unit.reads[rid])
+        fh.write(f"{names[rid]}\t+\t{qlen}\t0\t{qlen}\t{cnsid}\t+\t{len(cns)}"
+                 f"\t{beg}\t{end}\t{sc}\t{mat / (aln + 1):.3f}"
+                 f"\t{mat}\t{mis}\t{ins}\t{dl}\n")
+        fh.write(f"Q\t{_row_str(ra)}\n")
+        fh.write(f"T\t{_row_str(rb_)}\n")
+        mline = np.full(aln, ord(" "), np.uint8)
+        mline[(ra == 4) | (rb_ == 4)] = ord("-")
+        mline[m_col & (ra != rb_)] = ord("*")
+        fh.write("M\t" + mline.tobytes().decode() + "\n\n")
+        if vmsa is not None:
+            # interior of each match run: >margin columns from the nearest
+            # indel/alignment end on both sides (wtcns.c:627-668 lc logic)
+            runs = m_col.astype(np.int32)
+            left = np.zeros(aln, np.int32)
+            acc = 0
+            for j in range(aln):          # run-distance from run start
+                acc = acc + 1 if runs[j] else 0
+                left[j] = acc
+            right = np.zeros(aln, np.int32)
+            acc = 0
+            for j in range(aln - 1, -1, -1):
+                acc = acc + 1 if runs[j] else 0
+                right[j] = acc
+            counted = m_col & (left > margin) & (right > margin)
+            cpos = np.cumsum(rb_ != 4) - 1 + beg   # cns position per column
+            sel = counted & (ra < 4)
+            np.add.at(bases, (ra[sel], cpos[sel]), 1)
+            counted_rows[rid] = (counted, cpos)
+    if vmsa is not None and rows:
+        order = np.argsort(bases, axis=0)
+        a_ = order[3]
+        b_ = order[2]
+        cnt_a = bases[a_, np.arange(len(cns))]
+        cnt_b = bases[b_, np.arange(len(cns))]
+        keys = (a_ != b_) & (cnt_b >= min_cnt) & (cnt_b >= min_freq * cnt_a)
+        key_idx = np.nonzero(keys)[0]
+        rank = np.cumsum(keys) - keys                 # rank before position
+        for rid, sc, beg, end, ra, rb_ in sorted(rows, key=lambda r: r[2]):
+            counted, cpos = counted_rows[rid]
+            line = ["-"] * len(key_idx)
+            in_t = rb_ != 4
+            kmask = np.isin(cpos, key_idx) & in_t
+            for j in np.nonzero(kmask)[0]:
+                ki = int(rank[cpos[j]])
+                if not counted[j]:
+                    line[ki] = "-"
+                elif ra[j] == rb_[j]:
+                    line[ki] = "."
+                else:
+                    line[ki] = "ACGT-"[min(int(ra[j]), 4)]
+            fh.write(f"MATRIX\t{names[rid]}\t" + "".join(line) + "\n")
+    if split is not None:
+        split["writer"] = split.get("writer", 0.0) + (time.perf_counter()
+                                                      - t_writer)
 
 
 def write_cns(path: str, results):

@@ -136,6 +136,7 @@ def test_copied_code_equals_sources():
                  "S_WMARG"):
         assert getattr(tcns, name) == getattr(jcns, name), name
     assert np.array_equal(tcns._BASE_BIT, jcns._BASE_BIT)
+    assert np.array_equal(tcns._GAP_CHR, jcns._GAP_CHR)
     # the stitcher: the JAX _seg_align_pass from its first stitch line on
     first = "    fallbacks = 0"
     assert (_tail(_src(tcns, "_stitch_reads"), first)

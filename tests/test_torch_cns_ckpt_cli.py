@@ -3,7 +3,8 @@ JAX package, on the CPU: a checkpoint the JAX package wrote after one
 iteration resumes in the port to the JAX package's uninterrupted result,
 the port resumes its own checkpoints to its straight result, column maps
 of one length stay readable, and `cns -i` writes the JAX CLI's bytes;
-`cns -a/-V` say they are not ported."""
+`cns -a/-V` write their records (their bytes against the JAX CLI's are in
+test_torch_cns_wholeread.py)."""
 
 import numpy as np
 import pytest
@@ -104,9 +105,20 @@ def test_cli_cns_matches_jax_cli(tmp_path, monkeypatch, capsys):
     assert capsys.readouterr().out == f"{head}\n{''.join(body)}\n"
 
 
-def test_cli_cns_unported_options_raise(tmp_path):
+def test_cli_cns_aln_options_write_records(tmp_path):
+    """`cns -a x.aln -V 2.05` writes a 16-column record, Q/T/M rows and a
+    MATRIX row per aligned read."""
     lay = str(tmp_path / "x.lay")
-    _write_lay(lay, small_unit(tcns))
-    for opt in (["-a", str(tmp_path / "x.aln")], ["-V", "2.05"]):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            cli.main(["cns", "-i", lay, "--device", "cpu"] + opt)
+    unit = small_unit(tcns)
+    _write_lay(lay, unit)
+    aln = tmp_path / "x.aln"
+    assert cli.main(["cns", "-i", lay, "-o", str(tmp_path / "x.cns"), "-n",
+                     "1", "-a", str(aln), "-V", "2.05", "--device", "cpu"]) == 0
+    lines = aln.read_text().splitlines()
+    recs = [x.split("\t") for x in lines
+            if x and x[:2] not in ("Q\t", "T\t", "M\t")
+            and not x.startswith("MATRIX")]
+    assert len(recs) >= 0.8 * len(unit.reads)
+    assert all(len(r) == 16 and r[5] == "u" for r in recs)
+    assert sum(x.startswith("Q\t") for x in lines) == len(recs)
+    assert sum(x.startswith("MATRIX\t") for x in lines) == len(recs)

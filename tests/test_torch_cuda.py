@@ -523,3 +523,227 @@ def test_consensus_unitig_cuda_matches_cpu(cuda):
     assert _build.LAUNCHES["segdp"] > n0
     exp = consensus_unitig(unit, p, return_offs=True, device="cpu")
     assert np.array_equal(got[0], exp[0]) and got[1] == exp[1]
+
+
+# ---- the whole-read DPs: csrc/banded.cu and csrc/refine.cu -----------------
+# The generators below are shared with tests/test_torch_banded_refine.py,
+# which feeds the same inputs to the JAX package.
+
+
+def _noisy(rng, src, err=0.12):
+    """src with err of its bases substituted, inserted or deleted (a third
+    each) and 2% of the result turned into N (code 4)."""
+    out = []
+    for c in src:
+        r = rng.random()
+        if r < err / 3:
+            out.append((int(c) + 1 + int(rng.integers(3))) % 4)
+        elif r < 2 * err / 3:
+            out += [int(c), int(rng.integers(4))]
+        elif r >= err:
+            out.append(int(c))
+    out = np.array(out, np.uint8)
+    out[rng.random(out.size) < 0.02] = 4
+    return out
+
+
+def banded_inputs(rng, B, LA, W, jump=True):
+    """B reads against consensus windows, as the consensus align pass
+    gives them: read k is a noisy copy of its window from an offset of up
+    to W, windows carry N codes too, the band comes from anchors every 100
+    rows through make_band_centers (negative bases where the window starts
+    near the read).  Read 1 has alen 0, read 2 a window of length 0; read 0
+    fills LA; with `jump`, read 3's band steps by W + 37 columns at one row
+    (the whole previous row out of band)."""
+    from smartdenovo_tpu_torch.ops.banded import make_band_centers
+
+    a = np.full((B, LA), 4, np.uint8)
+    LB = LA + 3 * W
+    b = np.full((B, LB), 4, np.uint8)
+    alen = np.zeros(B, np.int32)
+    blen = np.zeros(B, np.int32)
+    anchors = []
+    for k in range(B):
+        win = rng.integers(0, 4, LB, dtype=np.uint8)
+        win[rng.random(LB) < 0.01] = 4
+        off = int(rng.integers(0, W))
+        read = _noisy(rng, win[off:off + LA])[:LA]
+        n = LA if k == 0 else (0 if k == 1 else int(rng.integers(LA // 3, LA + 1)))
+        n = min(n, read.size)
+        a[k, :n] = read[:n]
+        alen[k] = n
+        blen[k] = 0 if k == 2 else min(LB, off + n + int(rng.integers(0, W)))
+        b[k, :blen[k]] = win[:blen[k]]
+        anchors.append([(x, off + x) for x in range(50, n, 100)])
+    base = make_band_centers(anchors, alen, blen, LA, W)
+    if jump and B > 3:
+        base[3, LA // 3:] += W + 37
+        np.maximum.accumulate(base[3], out=base[3])
+    return a, b, alen, blen, base
+
+
+def refine_inputs(rng, B, LA, W, indel=0):
+    """B (read, window) pairs of a refine batch and their band: read k is
+    a noisy copy of its window, the prior CIGAR one all-M run, so the band
+    follows the diagonal.  With `indel`, read 0 also loses `indel` bases
+    at its middle and its prior CIGAR says so (M, D indel, M), as a large
+    deletion makes refine_alignment_batch pick a wide band tier.  Read 1
+    has alen 0; windows carry N codes."""
+    from smartdenovo_tpu_torch.ops.refine import band_from_cigar
+
+    a = np.full((B, LA), 4, np.uint8)
+    LB = LA + indel + W
+    b = np.full((B, LB), 4, np.uint8)
+    alen = np.zeros(B, np.int32)
+    blen = np.zeros(B, np.int32)
+    cigars = []
+    for k in range(B):
+        n = LA if k == 0 else (0 if k == 1 else int(rng.integers(LA // 3, LA)))
+        win = rng.integers(0, 4, LB, dtype=np.uint8)
+        win[rng.random(LB) < 0.01] = 4
+        read = _noisy(rng, win[: n + (indel if k == 0 else 0)])
+        if k == 0 and indel:
+            h = read.size // 2
+            read = np.concatenate([read[:h], read[h + indel:]])
+        read = read[:n]
+        n = read.size
+        bl = min(LB, n + (indel if k == 0 else 0) + int(rng.integers(0, 8)))
+        a[k, :n] = read
+        b[k, :bl] = win[:bl]
+        alen[k], blen[k] = n, bl
+        if k == 0 and indel:
+            h = n // 2
+            cigars.append((["M", "D", "M"], [h, indel, max(n - h, 1)]))
+        else:
+            cigars.append((["M"], [max(n, bl, 1)]))
+    base = band_from_cigar(cigars, alen, blen, LA, W)
+    return a, b, alen, blen, base, cigars
+
+
+def tracks_for(rng, a):
+    """The five 5q tracks [B, LA] i32 of a batch: SubQV, InsQV, DelQV in
+    3..40, SubTag and DelTag codes 0..4 (4 = N, which the 5q costs compare
+    raw)."""
+    B, LA = a.shape
+    q = [rng.integers(3, 41, (B, LA)).astype(np.int32) for _ in range(3)]
+    return q + [rng.integers(0, 5, (B, LA)).astype(np.int32) for _ in range(2)]
+
+
+def quals_for(rng, pairs):
+    """[7, len(read)] u8 f5q tracks per pair, as parse_lay_file gives them:
+    QVs in 3..40 on tracks 1-3, tag codes 0..4 on tracks 5-6."""
+    out = []
+    for a, _ in pairs:
+        q = np.zeros((7, len(a)), np.uint8)
+        q[1:4] = rng.integers(3, 41, (3, len(a)))
+        q[5:7] = rng.integers(0, 5, (2, len(a)))
+        out.append(q)
+    return out
+
+
+def assert_dp_equal(got, exp, alen, ndirs=2):
+    """DP outputs equal: every output but dirs whole; dirs (at index
+    ndirs) on the rows 0..alen of each read, the rows the kernel writes."""
+    for n, (g, e) in enumerate(zip(got, exp)):
+        g, e = g.cpu(), e.cpu()
+        if n != ndirs:
+            assert torch.equal(g, e), n
+            continue
+        for k, ln in enumerate(alen):
+            assert torch.equal(g[k, :int(ln) + 1], e[k, :int(ln) + 1]), k
+
+
+@pytest.mark.parametrize("semi", [True, False])
+@pytest.mark.parametrize("gaps", [(-3, -3), (-2, -3)])
+@pytest.mark.parametrize("W", [32, 64, 96, 128, 256])
+def test_banded_cuda_matches_plain(cuda, W, gaps, semi):
+    """Every read a different alen (0 and LA among them), a window of
+    length 0, N codes, negative bases and a band step past W."""
+    from smartdenovo_tpu_torch.ops.banded import banded_align
+
+    LA = 700
+    args = banded_inputs(np.random.default_rng(W + gaps[0]), 12, LA, W)
+    assert (args[4] < 0).any()
+    kw = dict(LA=LA, W=W, gap_a=gaps[0], gap_b=gaps[1], semiglobal_b=semi)
+    n0 = _build.LAUNCHES["banded"]
+    got = banded_align(*(_t(x).to(cuda) for x in args), **kw)
+    assert _build.LAUNCHES["banded"] == n0 + 1
+    exp = banded_align(*(_t(x) for x in args), **kw)
+    assert_dp_equal(got, exp, args[2])
+
+
+def test_banded_cuda_rowmax_raises(cuda):
+    from smartdenovo_tpu_torch.ops.banded import banded_align
+
+    args = banded_inputs(np.random.default_rng(3), 4, 64, 64)
+    with pytest.raises(NotImplementedError, match="ext.py"):
+        banded_align(*(_t(x).to(cuda) for x in args), LA=64, W=64,
+                     return_rowmax=True)
+
+
+@pytest.mark.parametrize("W,indel", [(64, 0), (128, 0), (256, 0),
+                                     (512, 200), (1024, 300)])
+def test_refine_cuda_matches_plain(cuda, W, indel):
+    """Every band tier of refine_alignment_batch, a long deletion
+    in the wide tiers, reads of different alen (one 0)."""
+    from smartdenovo_tpu_torch.ops.refine import refine_banded_affine
+
+    LA = 600
+    *args, _ = refine_inputs(np.random.default_rng(W), 10, LA, W, indel)
+    kw = dict(LA=LA, W=W, open_i=-2, open_d=-3)
+    n0 = _build.LAUNCHES["refine"]
+    got = refine_banded_affine(*(_t(x).to(cuda) for x in args), **kw)
+    assert _build.LAUNCHES["refine"] == n0 + 1
+    exp = refine_banded_affine(*(_t(x) for x in args), **kw)
+    assert_dp_equal(got, exp, args[2], ndirs=1)
+
+
+@pytest.mark.parametrize("W,indel", [(64, 0), (256, 0), (1024, 300)])
+def test_refine5q_cuda_matches_plain(cuda, W, indel):
+    from smartdenovo_tpu_torch.ops.refine5q import refine5q_banded
+
+    LA = 600
+    rng = np.random.default_rng(W + 5)
+    a, b, alen, blen, base, _ = refine_inputs(rng, 10, LA, W, indel)
+    args = (a, b, *tracks_for(rng, a), alen, blen, base)
+    n0 = _build.LAUNCHES["refine5q"]
+    got = refine5q_banded(*(_t(x).to(cuda) for x in args), LA=LA, W=W)
+    assert _build.LAUNCHES["refine5q"] == n0 + 1
+    exp = refine5q_banded(*(_t(x) for x in args), LA=LA, W=W)
+    assert_dp_equal(got, exp, alen, ndirs=1)
+
+
+def test_refine_alignment_batch_cuda_matches_cpu(cuda):
+    """The batch wrappers (band tier, kernel, traceback, stats), affine and
+    5q, with a prior CIGAR whose deletion picks W = 512."""
+    from smartdenovo_tpu_torch.ops.refine import refine_alignment_batch
+    from smartdenovo_tpu_torch.ops.refine5q import refine5q_alignment_batch
+
+    rng = np.random.default_rng(8)
+    a, b, alen, blen, _, cigs = refine_inputs(rng, 8, 900, 512, 200)
+    pairs = [(a[k, :alen[k]], b[k, :blen[k]]) for k in range(8)
+             if alen[k] and blen[k]]
+    cigs = [c for k, c in enumerate(cigs) if alen[k] and blen[k]]
+    got = refine_alignment_batch(pairs, cigs, device="cuda")
+    exp = refine_alignment_batch(pairs, cigs, device="cpu")
+    assert got == exp
+    quals = quals_for(rng, pairs)
+    got = refine5q_alignment_batch(pairs, quals, cigs, device="cuda")
+    exp = refine5q_alignment_batch(pairs, quals, cigs, device="cpu")
+    assert got == exp
+
+
+def test_whole_read_consensus_cuda_matches_cpu(cuda):
+    """consensus_unitig(seg_engine=False) on the 12 kb unit, one iteration:
+    codes and offsets equal on cuda and cpu, through the banded and refine
+    kernels."""
+    from smartdenovo_tpu_torch.pipeline.cns import CnsParams, consensus_unitig
+
+    unit = unit_12kb()
+    p = CnsParams(n_iter=1, seg_engine=False)
+    n0 = (_build.LAUNCHES["banded"], _build.LAUNCHES["refine"])
+    got = consensus_unitig(unit, p, return_offs=True, device="cuda")
+    assert _build.LAUNCHES["banded"] > n0[0]
+    assert _build.LAUNCHES["refine"] > n0[1]
+    exp = consensus_unitig(unit, p, return_offs=True, device="cpu")
+    assert np.array_equal(got[0], exp[0]) and got[1] == exp[1]

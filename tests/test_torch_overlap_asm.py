@@ -142,24 +142,42 @@ def test_port_imports_no_jax():
 
 
 def test_unported_paths_raise(bank, tmp_path):
+    """What the port does not run yet raises; the whole-read consensus
+    engine, which it runs since it was ported, does not."""
     for kw in (dict(engine="sw"), dict(gparts=2), dict(matcher="vtab")):
         with pytest.raises(NotImplementedError):
             tzmo.overlap_dmo(bank, tzmo.ZmoParams.dmo(**kw), device="cpu")
     fa = str(tmp_path / "r.fa")
     write_sim_fasta(fa, bank.names[:3], [bank.get(i) for i in range(3)])
-    for argv in (["asm", fa, "-e", "zmo"], ["cns", "-i", "x.lay", "-a", "x.aln"],
-                 ["cns", "-i", "x.lay", "-V", "2.05"]):
-        with pytest.raises(NotImplementedError):
-            cli.main(argv + ["--device", "cpu"])
-    # the whole-read consensus engine: f5q units and seg_engine=False
-    reads = [bank.get(i) for i in range(4)]
+    with pytest.raises(NotImplementedError, match="item 9"):
+        cli.main(["asm", fa, "-e", "zmo", "--device", "cpu"])
+    # the whole-read consensus engine runs on the CPU: cns -a/-V, f5q units
+    # and seg_engine=False (4 reads of 600 bp at offsets 0-300 of read 0)
+    reads = [bank.get(0)[100 * k: 100 * k + 600] for k in range(4)]
+    lay = tmp_path / "x.lay"
+    lay.write_text(">u length=900 nodes=4\n" + "".join(
+        f"Y\tr{k}\t+\t{100 * k}\t600\t{''.join('ACGT'[c] for c in r)}\n"
+        for k, r in enumerate(reads)))
+    aln = tmp_path / "x.aln"
+    for opt in (["-a", str(aln)], ["-a", str(aln), "-V", "2.05"], ["-V", "2.05"]):
+        assert cli.main(["cns", "-i", str(lay), "-o", str(tmp_path / "x.cns"),
+                         "-n", "1", "--device", "cpu"] + opt) == 0
+        if "-a" not in opt:   # -V alone writes nothing, as in the JAX CLI
+            assert not aln.exists()
+            continue
+        text = aln.read_text()
+        assert text.startswith("r0\t+\t600\t0\t600\tu\t")
+        assert text.count("\nQ\t") == 4
+        assert ("MATRIX" in text) == ("-V" in opt)
+        aln.unlink()
     quals = [np.zeros((7, len(r)), np.uint8) for r in reads]
-    for unit, p in ((tcns.LayUnitig("u", reads, [0] * 4, [True] * 4,
-                                    quals=quals), tcns.CnsParams()),
-                    (tcns.LayUnitig("u", reads, [0] * 4, [True] * 4),
-                     tcns.CnsParams(seg_engine=False))):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tcns.consensus_unitig(unit, p, device="cpu")
+    offs = [0, 100, 200, 300]
+    for unit, p in ((tcns.LayUnitig("u", reads, offs, [True] * 4, quals=quals),
+                     tcns.CnsParams(n_iter=1)),
+                    (tcns.LayUnitig("u", reads, offs, [True] * 4),
+                     tcns.CnsParams(n_iter=1, seg_engine=False))):
+        codes = tcns.consensus_unitig(unit, p, device="cpu")
+        assert 800 <= len(codes) <= 1000
 
 
 def test_cuda_device_without_gpu_raises(bank):
