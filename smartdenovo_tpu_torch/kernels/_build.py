@@ -65,8 +65,9 @@ _SIGNATURES = {
     # SEGR, LBW, W, segments a block, blocks an SM
     "segdp_occupancy": [_I32, _I32, _I32, _P, _P],
     # a, b, alen, blen, base, B, LA, LB, W, T, match, mismatch, gap_a,
-    # gap_b, semiglobal_b, dirs, score, end_col, mvs, j_final, stream
-    "banded_align_tb": [_P] * 5 + [_I32] * 10 + [_P] * 6,
+    # gap_b, semiglobal_b, dirs, score, end_col, mvs, j_final, rmax, rcol
+    # (both null: no row maxima), stream
+    "banded_align_tb": [_P] * 5 + [_I32] * 10 + [_P] * 8,
     # a, b, alen, blen, base, subqv, insqv, delqv, subtag, deltag (0 for
     # the affine costs), B, LA, LB, W, T, q5, five costs (match, mismatch,
     # open_i, open_d, ext or qclp, qmis, qdel, qext, 0), dirs, score, mvs,

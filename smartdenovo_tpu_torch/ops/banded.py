@@ -44,18 +44,16 @@ def banded_align(a, b, alen, blen, base, *, LA: int, W: int = 256,
     JAX function's (later rows are unspecified); mvs and j_final are
     JAX's `tb_banded_device` from (alen, end_col): move codes DIAG 1, UP
     2, LEFT 3, 0 once done.  return_rowmax (wtext's per-row best cell)
-    runs on the CPU only and appends (rmax, rcol) [B, LA+1]."""
+    appends (rmax, rcol) [B, LA+1] i32: per row the first maximum of H
+    over the band lanes with 0 <= col <= blen and its column; a row with
+    every lane masked, and every row past alen, gives NEG_INF at base."""
     gap_a = gap if gap_a is None else gap_a
     gap_b = gap if gap_b is None else gap_b
     kw = dict(LA=LA, W=W, match=match, mismatch=mismatch, gap_a=gap_a,
               gap_b=gap_b, semiglobal_b=semiglobal_b)
     if a.device.type == "cuda":
-        if return_rowmax:
-            raise NotImplementedError(
-                "banded_align(return_rowmax=True) runs on the CPU only; its "
-                "caller, pipeline/ext.py (wtext), is ROADMAP queue 1 item 10's "
-                "next part")
-        return _banded_cuda(a, b, alen, blen, base, **kw)
+        return _banded_cuda(a, b, alen, blen, base,
+                            return_rowmax=return_rowmax, **kw)
     if a.device.type == "cpu":
         out = banded_align_plain(a, b, alen, blen, base,
                                  return_rowmax=return_rowmax, **kw)
@@ -163,7 +161,7 @@ def banded_align_plain(a, b, alen, blen, base, *, LA, W, match, mismatch,
 
 
 def _banded_cuda(a, b, alen, blen, base, *, LA, W, match, mismatch, gap_a,
-                 gap_b, semiglobal_b):
+                 gap_b, semiglobal_b, return_rowmax=False):
     B, LB = b.shape
     dev = a.device
     if (a.dtype != torch.uint8 or b.dtype != torch.uint8
@@ -179,6 +177,9 @@ def _banded_cuda(a, b, alen, blen, base, *, LA, W, match, mismatch, gap_a,
     if W % 32 or not 32 <= W <= 256:
         raise ValueError(f"banded_align: W={W} must be a multiple of 32 up "
                          f"to 256")
+    if not (-128 <= match <= 127 and -128 <= mismatch <= 127):
+        raise ValueError("banded_align: match and mismatch must fit in int8 "
+                         "(the kernel's score table holds bytes)")
     if any(t.device != dev for t in (b, alen, blen, base)):
         raise ValueError("banded_align: inputs on different devices")
     a, b, alen, blen, base = (t.contiguous() for t in (a, b, alen, blen, base))
@@ -188,8 +189,12 @@ def _banded_cuda(a, b, alen, blen, base, *, LA, W, match, mismatch, gap_a,
     j_final = torch.empty(B, dtype=torch.int32, device=dev)
     mvs = torch.empty((T, B), dtype=torch.int8, device=dev)
     dirs = torch.empty((B, LA + 1, W), dtype=torch.uint8, device=dev)
+    extra = ()
+    if return_rowmax:
+        extra = tuple(torch.empty((B, LA + 1), dtype=torch.int32, device=dev)
+                      for _ in range(2))
     if B == 0:
-        return score, end_col, dirs, mvs, j_final
+        return (score, end_col, dirs, mvs, j_final) + extra
     lib = _build.lib()
     _build.LAUNCHES["banded"] += 1
     _build.check(lib.banded_align_tb(
@@ -197,8 +202,9 @@ def _banded_cuda(a, b, alen, blen, base, *, LA, W, match, mismatch, gap_a,
         base.data_ptr(), B, LA, LB, W, T, match, mismatch, gap_a, gap_b,
         int(semiglobal_b), dirs.data_ptr(), score.data_ptr(),
         end_col.data_ptr(), mvs.data_ptr(), j_final.data_ptr(),
+        *(t.data_ptr() for t in extra) if extra else (None, None),
         _build.stream_of(a)), "banded_align_tb")
-    return score, end_col, dirs, mvs, j_final
+    return (score, end_col, dirs, mvs, j_final) + extra
 
 
 def make_band_centers(anchors_list, alens, blens, LA: int, W: int) -> np.ndarray:

@@ -162,6 +162,10 @@ def refine_cuda(a, b, alen, blen, base, tracks, *, LA, W, **costs):
                          f"{[tuple(t.shape) for t in ins]}")
     if W not in W_TIERS:
         raise ValueError(f"{name}: W={W} must be one of {W_TIERS}")
+    if tracks is None and not all(-128 <= costs[k] <= 127
+                                  for k in ("match", "mismatch")):
+        raise ValueError(f"{name}: match and mismatch must fit in int8 (the "
+                         f"kernel's score table holds bytes)")
     if any(t.device != dev for t in ins):
         raise ValueError(f"{name}: inputs on different devices")
     ins = tuple(t.contiguous() for t in ins)

@@ -672,13 +672,143 @@ def test_banded_cuda_matches_plain(cuda, W, gaps, semi):
     assert_dp_equal(got, exp, args[2])
 
 
-def test_banded_cuda_rowmax_raises(cuda):
+@pytest.mark.parametrize("semi", [True, False])
+@pytest.mark.parametrize("W", [32, 96, 256])
+def test_banded_cuda_rowmax_matches_plain(cuda, W, semi):
+    """The row maxima (rmax, rcol) with the other outputs: a read of alen
+    0, reads shorter than the batch's longest (their rows past alen), a
+    window of length 0 and rows whose every lane is masked (read 3's band
+    stepped past its window)."""
+    from smartdenovo_tpu_torch.ops.banded import NEG_INF, banded_align
+
+    LA = 500
+    args = banded_inputs(np.random.default_rng(W + 7), 10, LA, W)
+    kw = dict(LA=LA, W=W, gap_a=-2, gap_b=-3, semiglobal_b=semi,
+              return_rowmax=True)
+    n0 = _build.LAUNCHES["banded"]
+    got = banded_align(*(_t(x).to(cuda) for x in args), **kw)
+    assert _build.LAUNCHES["banded"] == n0 + 1
+    exp = banded_align(*(_t(x) for x in args), **kw)
+    assert len(got) == 7
+    alen = args[2]
+    rmax = exp[5].numpy()
+    masked = [(rmax[k, 1:alen[k] + 1] == NEG_INF).any() for k in range(10)]
+    assert alen.min() == 0 and (alen < alen.max()).sum() > 1 and any(masked)
+    assert_dp_equal(got, exp, alen)
+
+
+def stepped_band(rng, LA, W, alen, start):
+    """Bases of a read whose band steps mix 0, 1 and 2 on most rows with
+    steps of 33 at a fifth and two fifths of it and one of W + 37 at
+    three quarters (the whole previous row out of band), so the register
+    shift and the shared buffer take turns; rows past alen keep
+    base[alen]."""
+    steps = np.array([1, 0, 1, 2, 1, 1, 0, 1])[np.arange(LA) % 8]
+    steps[[alen // 5, 2 * alen // 5]] = 33
+    steps[3 * alen // 4] = W + 37
+    base = np.full(LA + 1, start, np.int64)
+    base[1:alen + 1] += np.cumsum(steps[:alen])
+    base[alen + 1:] = base[alen]
+    return base.astype(np.int32)
+
+
+def stepped_inputs(rng, LA, W, start):
+    """Three reads on stepped bands: read 0 fills LA, read 1 has 2/3 of
+    it and a window that ends inside its last rows' band, read 2 alen 0.
+    A read follows its band's centre in a random window with 10% of its
+    bases redrawn; 2% of both are N."""
+    B = 3
+    alen = np.array([LA, 2 * LA // 3, 0], np.int32)
+    bases = [stepped_band(rng, LA, W, int(n), start) for n in alen]
+    LB = int(max(b[-1] for b in bases)) + W + 8
+    a = np.full((B, LA), 4, np.uint8)
+    b = rng.integers(0, 4, (B, LB)).astype(np.uint8)
+    blen = np.zeros(B, np.int32)
+    for k in range(B):
+        n = int(alen[k])
+        col = np.clip(bases[k][1:n + 1] + W // 2 - 1, 0, LB - 1)
+        read = b[k, col]
+        sub = rng.random(n) < 0.1
+        read[sub] = rng.integers(0, 4, int(sub.sum()))
+        a[k, :n] = read
+        blen[k] = LB - 4 if k != 1 else int(bases[k][n]) + W // 2
+        b[k, blen[k]:] = 4
+    a[rng.random(a.shape) < 0.02] = 4
+    b[rng.random(b.shape) < 0.02] = 4
+    return a, b, alen, blen, np.stack(bases)
+
+
+@pytest.mark.parametrize("semi", [True, False])
+@pytest.mark.parametrize("W", [32, 64, 96, 128, 160, 192, 224, 256])
+def test_banded_cuda_band_steps(cuda, W, semi):
+    """Band steps of 0, 1, 2, 33 and W + 37 in one read, at every width,
+    from a band that starts left of the window, with the row maxima."""
     from smartdenovo_tpu_torch.ops.banded import banded_align
 
-    args = banded_inputs(np.random.default_rng(3), 4, 64, 64)
-    with pytest.raises(NotImplementedError, match="ext.py"):
-        banded_align(*(_t(x).to(cuda) for x in args), LA=64, W=64,
-                     return_rowmax=True)
+    LA = 400
+    args = stepped_inputs(np.random.default_rng(W), LA, W, -(W // 3))
+    steps = np.diff(args[4][0])
+    assert {0, 1, 2, 33, W + 37} <= set(steps.tolist())
+    kw = dict(LA=LA, W=W, gap_a=-2, gap_b=-3, semiglobal_b=semi,
+              return_rowmax=True)
+    got = banded_align(*(_t(x).to(cuda) for x in args), **kw)
+    exp = banded_align(*(_t(x) for x in args), **kw)
+    assert_dp_equal(got, exp, args[2])
+
+
+@pytest.mark.parametrize("q5", [False, True])
+@pytest.mark.parametrize("W", [64, 128, 256, 512, 1024])
+def test_refine_cuda_band_steps(cuda, W, q5):
+    """Band steps of 0, 1, 2, 33 and W + 37 in one read at every band
+    tier (the wide ones keep the shared form), both cost models."""
+    from smartdenovo_tpu_torch.ops.refine import refine_banded_affine
+    from smartdenovo_tpu_torch.ops.refine5q import refine5q_banded
+
+    LA = 400
+    rng = np.random.default_rng(W + q5)
+    a, b, alen, blen, base = stepped_inputs(rng, LA, W, 0)
+    if q5:
+        args = (a, b, *tracks_for(rng, a), alen, blen, base)
+        fn, kw, name = refine5q_banded, dict(LA=LA, W=W), "refine5q"
+    else:
+        args = (a, b, alen, blen, base)
+        fn, kw = refine_banded_affine, dict(LA=LA, W=W, open_i=-2, open_d=-3)
+        name = "refine"
+    n0 = _build.LAUNCHES[name]
+    got = fn(*(_t(x).to(cuda) for x in args), **kw)
+    assert _build.LAUNCHES[name] == n0 + 1
+    exp = fn(*(_t(x) for x in args), **kw)
+    assert_dp_equal(got, exp, alen, ndirs=1)
+
+
+@pytest.mark.parametrize("kind", ["banded", "refine", "refine5q"])
+def test_whole_read_cuda_many_reads(cuda, kind):
+    """528 reads of up to 2048 rows in one call, several on each SM (the
+    launch puts up to four reads in a block), equal to the plain version."""
+    from smartdenovo_tpu_torch.ops.banded import banded_align
+    from smartdenovo_tpu_torch.ops.refine import refine_banded_affine
+    from smartdenovo_tpu_torch.ops.refine5q import refine5q_banded
+
+    B, LA = 528, 2048
+    rng = np.random.default_rng(528)
+    if kind == "banded":
+        W = 256
+        args = banded_inputs(rng, B, LA, W)
+        fn, kw = banded_align, dict(LA=LA, W=W, gap_a=-2, gap_b=-3,
+                                    semiglobal_b=True)
+    else:
+        W = 128
+        a, b, alen, blen, base, _ = refine_inputs(rng, B, LA, W)
+        if kind == "refine":
+            args = (a, b, alen, blen, base)
+            fn, kw = refine_banded_affine, dict(LA=LA, W=W)
+        else:
+            args = (a, b, *tracks_for(rng, a), alen, blen, base)
+            fn, kw = refine5q_banded, dict(LA=LA, W=W)
+    alen = args[-3]
+    got = fn(*(_t(x).to(cuda) for x in args), **kw)
+    exp = fn(*(_t(x) for x in args), **kw)
+    assert_dp_equal(got, exp, alen, ndirs=2 if kind == "banded" else 1)
 
 
 @pytest.mark.parametrize("W,indel", [(64, 0), (128, 0), (256, 0),
@@ -746,4 +876,42 @@ def test_whole_read_consensus_cuda_matches_cpu(cuda):
     assert _build.LAUNCHES["banded"] > n0[0]
     assert _build.LAUNCHES["refine"] > n0[1]
     exp = consensus_unitig(unit, p, return_offs=True, device="cpu")
+    assert np.array_equal(got[0], exp[0]) and got[1] == exp[1]
+
+
+def f5q_unit():
+    """The f5q unit of tests/test_torch_cns_wholeread.py (tests/test_f5q.py's
+    quality-track unit): reads of 2.6 kb every 700 bp of a 6 kb truth at
+    10% error, each with seeded 7-track qualities, made here with the
+    port's modules alone."""
+    from smartdenovo_tpu_torch.pipeline.cns import LayUnitig
+    from smartdenovo_tpu_torch.utils.simulate import mutate_read, random_genome
+
+    rng = np.random.default_rng(14)
+    truth = random_genome(rng, 6000)
+    reads, offs, quals = [], [], []
+    for start in range(0, 5200, 700):
+        read = mutate_read(rng, truth[start: start + 2600], 0.1)
+        q = np.zeros((7, len(read)), np.uint8)
+        for t, (lo, hi) in enumerate(((10, 40), (5, 30), (5, 30), (5, 30),
+                                      (10, 40), (0, 4), (0, 4))):
+            q[t] = rng.integers(lo, hi, len(read))
+        reads.append(read)
+        offs.append(start)
+        quals.append(q)
+    return LayUnitig(name="u", reads=reads, offs=offs,
+                     backbone=[True] * len(reads), quals=quals)
+
+
+def test_f5q_consensus_cuda_matches_cpu(cuda):
+    """consensus_unitig on the f5q unit, two iterations: the quality-aware
+    refine's batch padding, track upload and fetch on the card give the
+    CPU run's codes and offsets."""
+    from smartdenovo_tpu_torch.pipeline.cns import CnsParams, consensus_unitig
+
+    p = CnsParams(n_iter=2)
+    n0 = _build.LAUNCHES["refine5q"]
+    got = consensus_unitig(f5q_unit(), p, return_offs=True, device="cuda")
+    assert _build.LAUNCHES["refine5q"] > n0
+    exp = consensus_unitig(f5q_unit(), p, return_offs=True, device="cpu")
     assert np.array_equal(got[0], exp[0]) and got[1] == exp[1]
