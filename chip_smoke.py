@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch + CUDA port (smartdenovo_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--workdir DIR]
+    python3 chip_smoke.py --only swlocal     # device, build, phase 3's swlocal
 
 Phases, each printing its lines; any failure raises and the script exits
 non-zero:
@@ -26,7 +27,9 @@ non-zero:
             of the same length (four on each SM sub-partition); the SW local
             DP (swlocal) on one batch of the E. coli zmo path (16 queries x
             64 chains, both passes in one call, W 256), timed and held
-            equal to its plain version
+            equal to its plain version; its bound counts the batch's live
+            rows, counted on the host (the bound of all rows is printed
+            beside it)
 4. join     the overlapper with the sort-join matcher on a deep 25 kb
             simulation, on cuda and on cpu: the overlap lists must be
             equal record for record, and K2 and K3 must have launched
@@ -657,19 +660,57 @@ def _sw_batch(seed, Q=16, C=64, W=256):
     return [A, Bm, alen, blen, tbv, qbv, slv], LA
 
 
+def _wrap32(x):
+    return (x + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def sw_live_rows_host(x, LA, W):
+    """Per pair, the rows of the SW DP that can change its outputs, counted
+    on the host from every row's band start (numpy, the JAX function's int32
+    formula), independent of the port's live_rows: where the band start is
+    non-decreasing over rows 0 .. min(alen, LA), the rows before the band
+    reaches column 1 and those after two rows in a row start at blen are
+    dead (the latter at the engine's scores, gap -3); any other pair counts
+    all its rows.  [B] int64."""
+    import numpy as np
+
+    _, _, alen, blen, tb, qb, sl = (np.asarray(v, np.int64) for v in x)
+    n = np.zeros(alen.size, np.int64)
+    for p in range(alen.size):
+        R = min(int(alen[p]), LA)
+        if R <= 0 or blen[p] <= 0:
+            continue
+        i = np.arange(R + 1, dtype=np.int64)
+        c = _wrap32(qb[p] + (_wrap32(_wrap32(i - tb[p]) * sl[p]) >> 12))
+        bs = np.clip(_wrap32(c - W // 2), -(W - 1), blen[p])
+        if (np.diff(bs) < 0).any():
+            n[p] = R
+            continue
+        live = np.flatnonzero(bs[1:] > -(W - 1))
+        pinned = np.flatnonzero((bs[1:] == blen[p]) & (bs[:-1] == blen[p]))
+        i0 = live[0] + 1 if live.size else R + 1
+        i1 = pinned[0] if pinned.size else R
+        n[p] = max(0, i1 - i0 + 1)
+    return n
+
+
 def phase_swlocal(dev):
     """swlocal (csrc/swlocal.cu) on one batch of the E. coli zmo path
     (_sw_batch: 16 queries x 64 chains, both passes in one call, W 256),
-    timed (median of 10 calls, each alone) and held equal to its plain
-    version on the same inputs, whose one call is timed too.  The bound
-    counts this batch's cells, sum of min(alen, LA) x W over both passes,
-    at SW_OPS_PER_CELL int32 operations, against the inputs' bytes."""
+    timed (median of 10 calls, each alone, and the mean of 10 in a row)
+    and held equal to its plain version on the same inputs, whose one call
+    is timed too; the live-row plan that each call makes (live_rows and
+    longest_first) is timed alone.  The bound counts the live cells of this
+    batch (sw_live_rows_host x W) at SW_OPS_PER_CELL int32 operations,
+    against the inputs' bytes; the bound of all rows, sum of min(alen, LA)
+    x W cells, is printed beside it."""
     import torch
 
     from smartdenovo_tpu_torch.ops import overlap_dp
 
     x, LA = _sw_batch(77)
     W = 256
+    live = sw_live_rows_host(x, LA, W)
     t = [torch.from_numpy(v).to(dev) for v in x]
     kw = dict(LA=LA, W=W)
     got = overlap_dp.banded_local_dp(*t, **kw)
@@ -685,16 +726,28 @@ def phase_swlocal(dev):
     if err:
         raise AssertionError(f"swlocal differs from its plain version (max "
                              f"abs err {err})")
+    ms_row = cuda_ms(lambda: overlap_dp.banded_local_dp(*t, **kw),
+                     in_a_row=True)
+    plan_ms = cuda_ms(lambda: overlap_dp.longest_first(
+        *overlap_dp.live_rows(*t[2:], LA, W)))
     alen = t[2].clamp(max=LA)
-    cells = int(alen.sum()) * W
+    rows = int(alen.sum())
     nbytes = int(alen.sum() + t[3].sum()) + 5 * 4 * t[2].numel() + 16 * t[2].numel()
-    tm = timing(ms, pms, nbytes, SW_OPS_PER_CELL * cells)
+    tm = timing(ms, pms, nbytes, SW_OPS_PER_CELL * int(live.sum()) * W)
+    all_rows, _ = bound(nbytes, SW_OPS_PER_CELL * rows * W)
     B = t[2].numel()
-    say(f"kernel swlocal B={B} LA={LA} W={W} ({cells} cells, mean alen "
-        f"{int(alen.float().mean())}): {ms:.3f} ms, plain {pms:.1f} ms, bound "
-        f"{tm['bound_ms']:.3f} ms ({tm['bound_by']}), share {tm['share']:.4f}, "
-        f"equal (best score max {int(got[0].max())})")
-    return dict(tm, max_abs_err=err, shape=f"B {B}, LA {LA}, W {W}")
+    say(f"kernel swlocal B={B} LA={LA} W={W} ({rows} rows, {int(live.sum())} "
+        f"live, longest live pair {int(live.max())}; one warp a SM "
+        f"sub-partition): {ms:.3f} ms (of it "
+        f"the live-row plan {plan_ms:.3f} ms; {ms_row:.3f} in a row), plain "
+        f"{pms:.1f} ms, live-cell bound {tm['bound_ms']:.3f} ms "
+        f"({tm['bound_by']}), share {tm['share']:.4f}; all-rows bound "
+        f"{all_rows:.3f} ms, share {all_rows / ms:.4f}; equal (best score max "
+        f"{int(exp[0].max())})")
+    return dict(tm, max_abs_err=err, shape=f"B {B}, LA {LA}, W {W}",
+                live_rows=int(live.sum()), rows=rows,
+                longest_live=int(live.max()), ms_in_a_row=ms_row,
+                plan_ms=plan_ms, bound_all_rows_ms=all_rows)
 
 
 def _plain_wr(kind, args, LA, W):
@@ -778,26 +831,33 @@ class _Tee(io.TextIOBase):
             st.flush()
 
 
-def phase_asm(tmp):
+def ecoli_reads(fa):
+    """Simulate the E. coli-sized reads (GENOME_LEN at COVERAGE, 13% error,
+    fixed seeds) into the FASTA fa."""
     import numpy as np
-    import torch
 
     from smartdenovo_tpu_torch.utils.simulate import (random_genome, simulate_reads,
                                                 write_sim_fasta)
-    from smartdenovo_tpu_torch import cli
-    from smartdenovo_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(46_000_000)
     genome = random_genome(rng, GENOME_LEN)
     names, seqs = simulate_reads(genome, coverage=COVERAGE, mean_len=9500,
                                  err=0.13, seed=18_460, circular=True)
-    fa = os.path.join(tmp, "ecoli_reads.fa")
     write_sim_fasta(fa, names, seqs)
     say(f"asm input: {len(seqs)} reads, {sum(len(s) for s in seqs)} bases "
         f"from a {GENOME_LEN} bp genome at {COVERAGE}x, simulated in "
         f"{time.perf_counter() - t0:.1f} s")
-    del names, seqs
+
+
+def phase_asm(tmp):
+    import torch
+
+    from smartdenovo_tpu_torch import cli
+    from smartdenovo_tpu_torch.kernels import _build
+
+    fa = os.path.join(tmp, "ecoli_reads.fa")
+    ecoli_reads(fa)
 
     prefix = os.path.join(tmp, "ecoli")
     buf = io.StringIO()
@@ -1414,6 +1474,9 @@ def main() -> int:
     ap.add_argument("--workdir", default=None,
                     help="keep the work files (E. coli reads and stage files) "
                          "here instead of a temporary directory")
+    ap.add_argument("--only", choices=["swlocal"], default=None,
+                    help="run only this kernel's phase 3 check and timing "
+                         "(no main path, no closing result line)")
     args = ap.parse_args()
     try:
         import torch
@@ -1438,6 +1501,10 @@ def main() -> int:
     so, secs = _build.build()
     _build.lib()
     say(f"build: {so.name} in {secs:.1f} s (nvcc, sm_90a)")
+    if args.only == "swlocal":
+        say(json.dumps({"swlocal": phase_swlocal(dev)}))
+        say(gpu_line())
+        return 0
 
     kres = phase_kernels(dev)
     phase_join()

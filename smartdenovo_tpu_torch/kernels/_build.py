@@ -73,9 +73,9 @@ _SIGNATURES = {
     # open_i, open_d, ext or qclp, qmis, qdel, qext, 0), dirs, score, mvs,
     # stream
     "refine_align_tb": [_P] * 10 + [_I32] * 11 + [_P] * 4,
-    # a, b, alen, blen, tb, qb, slope, B, LA, LB, W, match, mismatch, gap,
-    # out, stream
-    "swlocal_dp": [_P] * 7 + [_I32] * 7 + [_P] * 2,
+    # a, b, blen, tb, qb, slope, i0, i1, order, counter, B, LA, LB, W,
+    # match, mismatch, gap, out, stream
+    "swlocal_dp": [_P] * 10 + [_I32] * 7 + [_P] * 2,
 }
 _RESTYPES = {"sseg_scratch_ints": _I64, "jpost_scratch_ints": _I64,
              "pexpand_scratch_ints": _I64}   # the others return an int

@@ -13,10 +13,12 @@ The DP keeps no direction matrix and returns, per pair, the best score,
 the matches on its path and its end cell (a, b).
 
 `banded_local_dp` dispatches on the tensors' device: on CUDA it launches
-the hand-written kernel of csrc/swlocal.cu (one warp per pair), on the
-CPU it runs `banded_local_dp_plain`, a row loop in PyTorch that follows
-the JAX scan step for step.  `chain_band_params` and `reverse_batch` are
-copies of the JAX package's host helpers.
+the hand-written kernel of csrc/swlocal.cu, on the CPU it runs
+`banded_local_dp_plain`, a row loop in PyTorch that follows the JAX scan
+step for step.  The kernel runs only each pair's live rows (`live_rows`),
+pairs longest first (`longest_first`), with a warp taking the next pair
+from a counter.  `chain_band_params` and `reverse_batch` are copies of
+the JAX package's host helpers.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from ..kernels import _build
 
 NEG_INF = -(1 << 28)
 SLOPE_SHIFT = 12
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
 
 
 def chain_band_params(tb, te, qb, qe):
@@ -181,8 +184,68 @@ def banded_local_dp_plain(a, b, alen, blen, band_tb, band_qb, band_slope, *,
     return best, bmat, benda, bendb
 
 
+def _ceil_div(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    return -torch.div(-x, d, rounding_mode="floor")
+
+
+def live_rows(alen, blen, band_tb, band_qb, band_slope, LA: int, W: int, *,
+              match: int = 2, mismatch: int = -5, gap: int = -3):
+    """Per pair, the first and last row (i0, i1), [B] int32 each, that can
+    change banded_local_dp's outputs (with these scores); (0, -1) for a
+    pair with none.
+
+    Rows are 1 .. min(alen, LA); a pair with alen or blen <= 0 has none.
+    Where the band start is non-decreasing in the row (slope >= 0 and none
+    of the int32 steps of band_bases wraps over rows 0 .. min(alen, LA),
+    which holds for every row when it holds at both ends, each step being
+    monotone), two runs of rows are dead:
+    - the head, whose band start is clipped to -(W-1): every column is
+      <= 0, so the row is masked whole and leaves the carry at zeros, the
+      starting state; i0 is the first row whose band reaches column 1;
+    - the tail, once a row's band start and the one before it both equal
+      blen: the one live column (blen) is its column of the row before
+      plus the gap, its diagonal (outside the band) NEG_INF plus match or
+      mismatch, or a restart at 0; where gap <= 0 and NEG_INF + match and
+      + mismatch are <= 0, it never strictly raises the best, and i1 is
+      the last row before that; with other scores the tail stays.
+    Any other pair gets the whole range.  Closed forms of band_bases'
+    formula in int64: floor(x / 4096) >= T holds iff x >= 4096 T."""
+    # every step runs on both ends of the pair (rows 0 and R) and on both
+    # thresholds at once: a few dozen small ops a call, not a hundred
+    al, bl, tb, qb, sl = torch.stack(
+        (alen, blen, band_tb, band_qb, band_slope)).to(torch.int64)
+    R = al.clamp(max=LA)
+    d = torch.stack((torch.zeros_like(R), R.clamp(min=0))) - tb
+    p = d * sl
+    c = qb + (p >> SLOPE_SHIFT)
+    steps = torch.stack((d, p, c, c - W // 2))
+    fits = ((steps >= _I32_MIN) & (steps <= _I32_MAX)).flatten(0, 1).all(0)
+    mono = (sl >= 0) & fits
+    # the head, c(i) > -(W-1): floor((i - tb) sl / 4096) >= T; the tail, the
+    # first i whose row i - 1 starts at blen, c(i-1) >= blen: >= U
+    th = torch.stack((2 - W // 2 - qb, bl + W // 2 - qb))
+    first = torch.where(
+        sl > 0, tb + _ceil_div(th * (1 << SLOPE_SHIFT), sl.clamp(min=1)),
+        torch.where(th <= 0, 0, R + 1)).clamp(min=0)
+    i0 = torch.where(mono, first[0].clamp(min=1), 1)
+    tail = gap <= 0 and max(match, mismatch) + NEG_INF <= 0
+    i1 = torch.where(mono, torch.minimum(R, first[1]), R) if tail else R
+    none = (R <= 0) | (bl <= 0) | (i0 > i1)
+    i0 = torch.where(none, 0, i0)
+    i1 = torch.where(none, -1, i1)
+    return i0.to(torch.int32), i1.to(torch.int32)
+
+
+def longest_first(i0, i1):
+    """[B] int32: the pairs in order of live rows, longest first, ties in
+    pair order (a stable sort on the pairs' device)."""
+    n = (i1.to(torch.int64) - i0 + 1).clamp(min=0)
+    return torch.sort(n, descending=True, stable=True).indices.to(torch.int32)
+
+
 def _swlocal_cuda(a, b, alen, blen, band_tb, band_qb, band_slope, *, LA, W,
-                  match, mismatch, gap):
+                  match=2, mismatch=-5, gap=-3):
+    """The kernel's launch."""
     B, LB = b.shape
     dev = a.device
     if a.dtype != torch.uint8 or b.dtype != torch.uint8 or any(
@@ -200,16 +263,22 @@ def _swlocal_cuda(a, b, alen, blen, band_tb, band_qb, band_slope, *, LA, W,
     if any(t.device != dev
            for t in (b, alen, blen, band_tb, band_qb, band_slope)):
         raise ValueError("banded_local_dp: inputs on different devices")
-    args = [t.contiguous() for t in (a, b, alen, blen, band_tb, band_qb,
-                                     band_slope)]
     out = torch.empty((4, B), dtype=torch.int32, device=dev)
     if B == 0:
         return tuple(out)
+    i0, i1 = live_rows(alen, blen, band_tb, band_qb, band_slope, LA, W,
+                       match=match, mismatch=mismatch, gap=gap)
+    order = longest_first(i0, i1)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    args = [t.contiguous() for t in (a, b, blen, band_tb, band_qb,
+                                     band_slope)]
     lib = _build.lib()
     _build.LAUNCHES["swlocal"] += 1
     _build.check(lib.swlocal_dp(
-        *(t.data_ptr() for t in args), B, LA, LB, W, match, mismatch, gap,
-        out.data_ptr(), _build.stream_of(a)), "swlocal_dp")
+        *(t.data_ptr() for t in args), i0.data_ptr(), i1.data_ptr(),
+        order.data_ptr(), counter.data_ptr(), B, LA, LB, W, match, mismatch,
+        gap, out.data_ptr(), _build.stream_of(a)),
+        "swlocal_dp")
     return tuple(out)
 
 

@@ -984,6 +984,42 @@ def sw_edge_pairs(rng, B, LA, W):
     return x
 
 
+def sw_live_pairs(rng, B, LA, W):
+    """sw_pairs (B >= 24) with the live-row rule's cases in rows 0-23:
+    slope 0 inside the columns, pinned at -(W-1) and at blen; negative
+    slopes; products and sums that wrap in int32; tb beyond alen (no live
+    row, or a few); blen 0; alen > LA; long dead heads (the band left of
+    column 1) and dead tails (the band pinned at blen) on the engine's
+    slopes 1-4 << 12; blen < W; a dead row as sw_align_batch gives it."""
+    x = sw_pairs(rng, B, LA)
+    a, b, alen, blen, tb, qb, sl = x
+    sl[0], qb[0], tb[0] = 0, W // 2 + 5, 0
+    sl[1], qb[1] = 0, -W
+    sl[2], qb[2] = 0, int(blen[2]) + W
+    sl[3], sl[4] = -(1 << 12), -(3 << 12)
+    tb[5], sl[5] = 1 << 30, 64 << 12
+    tb[6], sl[6] = -(1 << 30), 4 << 12
+    qb[7], sl[7] = I32_MAX - 100, 1 << 12
+    tb[8], qb[8], sl[8] = int(alen[8]) + 500, 100, 1 << 12
+    tb[9], qb[9], sl[9] = int(alen[9]) - 20, 0, 1 << 12
+    blen[10] = 0
+    alen[11] = LA + 7
+    tb[12], qb[12], sl[12] = 0, -LA // 2, 1 << 12
+    tb[13], qb[13], sl[13] = 0, -LA, 4 << 12
+    tb[14], qb[14], sl[14] = 0, int(blen[14]) // 2, 4 << 12
+    tb[15], qb[15], sl[15] = 0, int(blen[15]) - 30, 1 << 12
+    tb[16], qb[16], sl[16] = LA // 3, 0, 2 << 12
+    blen[17] = W // 3
+    tb[18], blen[18] = I32_MAX, 0
+    qb[19], sl[19] = -(1 << 31) + 50, 1 << 12
+    sl[20] = (1 << 31) - 1
+    tb[21], qb[21], sl[21] = LA // 2, int(blen[21]), 3 * 4096 + 5
+    a[22], b[22], alen[22], blen[22] = 1, 1, LA, LA
+    tb[22], qb[22], sl[22] = LA // 4, 0, 1 << 12
+    sl[23] = 1
+    return x
+
+
 @pytest.mark.parametrize("W", [64, 128, 256])
 @pytest.mark.parametrize("kind", ["edge", "random"])
 def test_swlocal_cuda_matches_plain(cuda, W, kind):
@@ -1027,6 +1063,103 @@ def test_swlocal_cuda_raises_on_bad_width(cuda):
     t = [_t(v).to(cuda) for v in sw_pairs(np.random.default_rng(1), 2, 256)]
     with pytest.raises(ValueError):
         overlap_dp.banded_local_dp(*t, LA=256, W=48)
+
+
+def _sw_check(x, dev, LA, W=256, gap=-3):
+    """The kernel against the plain version on x: bit-equal, one launch."""
+    from smartdenovo_tpu_torch.ops import overlap_dp
+
+    t = [_t(v).to(dev) for v in x]
+    n0 = _build.LAUNCHES["swlocal"]
+    got = overlap_dp.banded_local_dp(*t, LA=LA, W=W, gap=gap)
+    assert _build.LAUNCHES["swlocal"] == n0 + 1
+    exp = overlap_dp.banded_local_dp_plain(*t, LA=LA, W=W, gap=gap)
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+    return [g.cpu().numpy() for g in got]
+
+
+@pytest.mark.parametrize("W", [32, 96, 256])
+def test_swlocal_cuda_live_rows(cuda, W):
+    """The live-row rule's cases (sw_live_pairs): slope 0, negative and
+    wrapping bands, dead heads and tails, tb beyond alen, blen 0."""
+    _sw_check(sw_live_pairs(np.random.default_rng(40 + W), 40, 1024, W), cuda,
+              1024, W)
+
+
+@pytest.mark.parametrize("gap", [0, 1])
+def test_swlocal_cuda_gap(cuda, gap):
+    """The live-row rule's cases at a gap of 0 (the tail is still cut) and
+    +1 (a pinned tail row raises the best, so the tail stays)."""
+    _sw_check(sw_live_pairs(np.random.default_rng(45 + gap), 40, 1024, 256),
+              cuda, 1024, gap=gap)
+
+
+def test_swlocal_cuda_mixed_lengths(cuda):
+    """37 pairs (not a multiple of a block's warps) of lengths 1 .. LA."""
+    rng = np.random.default_rng(51)
+    x = sw_pairs(rng, 37, 2048)
+    x[2][:] = np.minimum(x[2], rng.integers(1, 2049, 37))
+    x[2][:3] = [1, 2, 2048]
+    _sw_check(x, cuda, 2048)
+
+
+def test_swlocal_cuda_one_pair(cuda):
+    x = sw_pairs(np.random.default_rng(60), 1, 1024)
+    assert _sw_check(x, cuda, 1024)[0][0] > 100
+
+
+def test_swlocal_cuda_more_pairs_than_warps(cuda):
+    """6,000 pairs: the counter hands each of the grid's warps (4 a SM)
+    several pairs."""
+    x = sw_pairs(np.random.default_rng(61), 6000, 256)
+    assert (_sw_check(x, cuda, 256)[0] > 0).sum() > 5000
+
+
+def sw_tie_pairs(rng, LA=512, W=256, L=40):
+    """Four pairs whose best score 2 L is reached at several cells, with a
+    band of slope 0 over columns 0 .. W-1: (0) one row, two columns; (1)
+    two rows, one column; (2) two rows and two columns each; (3) the later
+    row at the lower column.  The JAX order picks the earliest row, then
+    its lowest column: (L, L), (L, L), (L, L), (L, 100).  Every other code
+    is 4, which matches nothing, so no path scores more."""
+    X, Y = (rng.integers(0, 4, L).astype(np.uint8) for _ in range(2))
+    R = lambda n: np.full(n, 4, np.uint8)  # noqa: E731
+    seqs = [(X, np.concatenate([X, R(60), X])),
+            (np.concatenate([X, R(60), X]), X),
+            (np.concatenate([X, R(60), X]), np.concatenate([X, R(90), X])),
+            (np.concatenate([Y, R(60), X]), np.concatenate([X, R(20), Y]))]
+    B = len(seqs)
+    a = R(B * LA).reshape(B, LA)
+    b = R(B * LA).reshape(B, LA)
+    for k, (sa, sb) in enumerate(seqs):
+        a[k, :sa.size] = sa
+        b[k, :sb.size] = sb
+    full = np.full(B, LA, np.int32)
+    zero = np.zeros(B, np.int32)
+    return [a, b, full, full.copy(), zero, zero + W // 2, zero.copy()]
+
+
+def test_swlocal_cuda_tied_bests(cuda):
+    """Ties of the best score at other rows and columns: the earliest row,
+    then the lowest column, whatever lane or row reaches them first."""
+    for seed in range(4):
+        got = _sw_check(sw_tie_pairs(np.random.default_rng(70 + seed)), cuda,
+                        512)
+        assert (got[0] == 80).all()
+        assert got[2].tolist() == [40] * 4
+        assert got[3].tolist() == [40, 40, 40, 100]
+
+
+def test_swlocal_cuda_wtgbo_batch(cuda):
+    """A batch of wtgbo's shape: 16 queries x 32 candidates x 2 passes,
+    most slots dead (tb INT32_MAX, blen 0, as sw_align_batch gives them)."""
+    rng = np.random.default_rng(62)
+    x = sw_pairs(rng, 1024, 2048)
+    dead = rng.random(1024) > 0.1
+    x[4][dead], x[3][dead], x[5][dead] = I32_MAX, 0, 0
+    got = _sw_check(x, cuda, 2048)
+    assert (got[0][dead] == 0).all() and (got[0][~dead] > 100).all()
 
 
 def sw_bank():

@@ -23,7 +23,7 @@ from smartdenovo_tpu_torch.ops import overlap_dp as todp
 from smartdenovo_tpu_torch.ops import seeds as tseeds
 from smartdenovo_tpu_torch.ops import zmo_sw as tsw
 from smartdenovo_tpu_torch.utils.simulate import random_genome, simulate_reads
-from test_torch_cuda import sw_bank, sw_edge_pairs, sw_pairs
+from test_torch_cuda import sw_bank, sw_edge_pairs, sw_live_pairs, sw_pairs
 
 torch.set_num_threads(1)
 I32_MAX = (1 << 31) - 1
@@ -61,6 +61,126 @@ def test_chain_band_params_and_reverse_batch():
     lens = rng.integers(0, 101, 8)
     assert np.array_equal(jodp.reverse_batch(x, lens),
                           todp.reverse_batch(x, lens))
+
+
+def _wrap32(x):
+    return ((np.asarray(x, np.int64) + (1 << 31)) % (1 << 32) - (1 << 31)).astype(
+        np.int32)
+
+
+def _trim_check(x, LA, W, gap=-3):
+    """Each pair cut to its live rows [i0, i1] (`a[i0-1:i1]`, tb - (i0-1),
+    alen i1 - i0 + 1; alen 0 where it has none) through the JAX function
+    gives its outputs on the whole pair, end_a offset by i0 - 1 where the
+    best is positive.  Returns (the whole pairs' outputs, rows kept)."""
+    a, b, alen, blen, tb, qb, sl = x
+    i0, i1 = (v.numpy() for v in todp.live_rows(
+        *(torch.from_numpy(v) for v in x[2:]), LA, W, gap=gap))
+    n = np.maximum(i1 - i0 + 1, 0).astype(np.int32)
+    at = np.full_like(a, 4)
+    for k in range(a.shape[0]):
+        at[k, :n[k]] = a[k, max(i0[k] - 1, 0):max(i0[k] - 1, 0) + n[k]]
+    tbt = _wrap32(tb.astype(np.int64) - np.maximum(i0 - 1, 0))
+    full = jodp.banded_local_dp(*(jnp.asarray(v) for v in x), LA=LA, W=W,
+                                gap=gap)
+    cut = jodp.banded_local_dp(*(jnp.asarray(v) for v in (
+        at, b, n, blen, tbt, qb, sl)), LA=LA, W=W, gap=gap)
+    full, cut = ([np.asarray(v) for v in r] for r in (full, cut))
+    for f in (0, 1, 3):
+        assert np.array_equal(full[f], cut[f])
+    pos = full[0] > 0
+    assert np.array_equal(full[2], np.where(pos, cut[2] + i0 - 1, 0))
+    return full, n
+
+
+@pytest.mark.parametrize("W", [32, 96, 256])
+@pytest.mark.parametrize("kind", ["live", "random"])
+def test_live_rows_trim_matches_jax(W, kind):
+    """The rows that the CUDA kernel skips change nothing (_trim_check).
+    B 32, LA 1024: random pairs, or sw_live_pairs' slope-0, negative,
+    wrapping, pinned and dead cases."""
+    rng = np.random.default_rng(7 * W + (kind == "live"))
+    LA = 1024
+    x = (sw_live_pairs(rng, 32, LA, W) if kind == "live"
+         else sw_pairs(rng, 32, LA))
+    full, n = _trim_check(x, LA, W)
+    assert (n < np.minimum(x[2], LA)).sum() >= 8   # rows were cut
+    assert int(full[0].max()) > 200
+    if kind == "live":   # tb beyond alen, blen 0, the dead row: no rows
+        assert n[8] == n[10] == n[18] == 0
+        assert full[0][[8, 10, 18]].max() == 0
+
+
+@pytest.mark.parametrize("gap", [0, 1])
+def test_live_rows_trim_matches_jax_gap(gap):
+    """_trim_check at a gap of 0, where a pinned tail row only ties the
+    best and the tail is still cut, and +1, where it raises the best and
+    the tail stays: sw_live_pairs at W 96, whose pairs 2, 14, 15 and 21
+    end pinned at blen."""
+    LA, W = 1024, 96
+    x = sw_live_pairs(np.random.default_rng(90 + gap), 32, LA, W)
+    _, n = _trim_check(x, LA, W, gap=gap)
+    _, n3 = (v.numpy() for v in todp.live_rows(
+        *(torch.from_numpy(v) for v in x[2:]), LA, W))
+    tails = [2, 14, 15, 21]
+    R = np.minimum(x[2], LA)
+    assert (n3[tails] < R[tails]).all()   # gap -3 cuts these tails
+    if gap > 0:
+        _, i1 = todp.live_rows(*(torch.from_numpy(v) for v in x[2:]), LA, W,
+                               gap=gap)
+        assert (i1.numpy()[tails] == R[tails]).all()
+
+
+@pytest.mark.parametrize("scores", [dict(gap=1), dict(match=(1 << 28) + 1),
+                                    dict(mismatch=(1 << 28) + 1)])
+def test_live_rows_keep_the_tail_when_it_can_rise(scores):
+    """A positive gap, or a match or mismatch that lifts the NEG_INF
+    diagonal of a pinned row above 0, keeps every row after the head; the
+    engine's scores cut the tail."""
+    LA, W = 1000, 256
+    alen = np.full(3, 900, np.int32)
+    blen = np.array([300, 500, 2000], np.int32)
+    tb, qb = np.zeros(3, np.int32), np.full(3, 128, np.int32)
+    sl = np.full(3, 4096, np.int32)
+    args = [torch.from_numpy(v) for v in (alen, blen, tb, qb, sl)]
+    i0, i1 = todp.live_rows(*args, LA, W)
+    # row i starts at column i: row blen is the last that can raise the best
+    assert i1.tolist() == [300, 500, 900]
+    j0, j1 = todp.live_rows(*args, LA, W, **scores)
+    assert j0.tolist() == i0.tolist() and j1.tolist() == [900] * 3
+
+
+def test_live_rows_whole_range_outside_the_monotone_case():
+    """A negative slope, or a band start whose int32 steps wrap somewhere in
+    rows 0 .. min(alen, LA), gets rows 1 .. min(alen, LA); so does a
+    monotone band whose every row is live."""
+    LA, W = 1000, 256
+    alen = np.array([900, 900, 900, 900, 900, 1500, 900], np.int32)
+    blen = np.full(7, 2000, np.int32)
+    tb = np.array([0, 1 << 30, -(1 << 30), 0, 0, 0, 0], np.int32)
+    qb = np.array([500, 0, 0, I32_MAX - 200, -(1 << 31) + 10, 128, 128],
+                  np.int32)
+    sl = np.array([-4096, 64 << 12, 4 << 12, 1 << 12, -1, 4096, 4096],
+                  np.int32)
+    i0, i1 = todp.live_rows(*(torch.from_numpy(v) for v in
+                              (alen, blen, tb, qb, sl)), LA, W)
+    assert i0.tolist() == [1] * 7
+    assert i1.tolist() == [900, 900, 900, 900, 900, 1000, 900]
+    assert i0.dtype == i1.dtype == torch.int32
+
+
+def test_longest_first_is_a_stable_permutation():
+    rng = np.random.default_rng(11)
+    i0 = torch.from_numpy(rng.integers(0, 40, 500).astype(np.int32))
+    i1 = torch.from_numpy(rng.integers(-1, 60, 500).astype(np.int32))
+    order = todp.longest_first(i0, i1)
+    assert order.dtype == torch.int32
+    o = order.numpy()
+    assert np.array_equal(np.sort(o), np.arange(500))
+    n = np.maximum(i1.numpy() - i0.numpy() + 1, 0)[o]
+    assert (np.diff(n) <= 0).all() and (n == 0).sum() > 50
+    same = np.diff(n) == 0
+    assert (np.diff(o)[same] > 0).all()   # ties in pair order
 
 
 def _bank(n_reads=24, seed=21):
