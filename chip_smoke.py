@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--workdir DIR]
     python3 chip_smoke.py --only swlocal     # device, build, phase 3's swlocal
     python3 chip_smoke.py --only swwide      # device, build, phase 3's swwide
+    python3 chip_smoke.py --only partitioned # device, build, phase 10
 
 Phases, each printing its lines; any failure raises and the script exits
 non-zero:
@@ -105,6 +106,23 @@ non-zero:
                 swlocal, banded and segdp launched
             (c) `mer` and `idx` through the CLI on the E. coli reads, their
                 times; load_indexes of the snapshot equal to the build
+
+10. partitioned  the read-block-partitioned overlapper on cuda:
+            (a) `zmo -G 2` and `-G 1` through the CLI (default dmo flags,
+                --batch-q 64) on phase 5's E. coli reads, where -G 2 must
+                raise at the expansion cap (its sweep needs far more than
+                the cap per batch and part), then on the depth cut (the
+                E. coli simulation's settings on a 250 kb genome): wall,
+                stage times, redispatches, K1 launches (> 0), peak device
+                memory of each, the pair-set Jaccard of -G 2 against -G 1
+                (>= 0.97)
+            (b) `-G 2` on the 30 kb test bank, on cuda and on cpu: equal
+            (c) whether gloo takes CUDA tensors; the sharded driver on the
+                60 kb dry-run sim as two gloo ranks sharing the card,
+                equal to the same world on the cpu, and as a world of one
+                over nccl, equal to overlap_dmo on the card
+            (d) graft_entry.entry()'s forward on cuda and on cpu: its 8
+                outputs equal
 
 The last lines are one JSON object of kernel results (all nine kernels,
 each launched on the main path: K1-K3 in phase 5, segdp in 6 (c), the
@@ -1808,14 +1826,243 @@ def tools_mer_idx(tmp, dev):
         raise AssertionError(f"idx snapshot differs from the build: {diff}")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the read-block-partitioned overlapper
+# ---------------------------------------------------------------------------
+
+GCUT_LEN = 250_000   # bp genome of phase 10 (a)'s depth cut
+
+
+def phase_partitioned(tmp, dev="cuda"):
+    """(a) `zmo -G 2` through the CLI on phase 5's E. coli reads, then on
+    the depth cut, beside `-G 1`; (b) `-G 2` on a small bank on `dev` and
+    on the CPU; (c) the sharded driver: two gloo ranks sharing the card
+    against the same world on the CPU, a world of one over nccl against
+    overlap_dmo; (d) graft_entry's forward on `dev` and on the CPU.
+    Returns the launches of (a)'s `-G 2` run on the cut, read with the
+    counts set to 0 just before it."""
+    t0 = time.perf_counter()
+    launches = gparts_ecoli(tmp, dev)
+    t1 = time.perf_counter()
+    gparts_against_cpu(dev)
+    t2 = time.perf_counter()
+    sharded_against_cpu(dev)
+    t3 = time.perf_counter()
+    entry_against_cpu(dev)
+    say(f"partitioned phase times (s): -G on E. coli {t1 - t0:.1f}, -G cuda "
+        f"vs cpu {t2 - t1:.1f}, sharded {t3 - t2:.1f}, entry "
+        f"{time.perf_counter() - t3:.1f}")
+    return launches
+
+
+def _zmo_g(fa, out, G, dev):
+    """`zmo -G G --batch-q 64` through the CLI with the default dmo flags:
+    (log, wall s, peak device bytes, launches, the error it raised or
+    None)."""
+    import torch
+
+    from smartdenovo_tpu_torch import cli
+    from smartdenovo_tpu_torch.kernels import _build
+
+    _build.reset_launches()
+    on_card = dev != "cpu"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    err = None
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(_Tee(sys.stderr, buf)):
+        try:
+            rc = cli.main(["zmo", "-i", fa, "-o", out, "-G", str(G),
+                           "--batch-q", "64", "--device", dev])
+        except RuntimeError as e:
+            err, rc = str(e), 0
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"zmo -G {G} exited {rc}")
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    return buf.getvalue(), wall, peak, dict(_build.LAUNCHES), err
+
+
+def _ovl_pairs(path):
+    with open(path) as fh:
+        return {frozenset((c[0], c[5])) for c in
+                (line.split("\t") for line in fh) if len(c) > 11}
+
+
+def gparts_ecoli(tmp, dev):
+    """`zmo -G 2` and `-G 1` on the E. coli reads and on the depth cut
+    (the E. coli simulation's settings on a GCUT_LEN genome): wall, stage
+    times, redispatches, K1 launches, peak device memory and the pair-set
+    Jaccard of -G 2 against -G 1.  At full size the sweep's expansion of a
+    batch against a part is far past expand_budget_cap, and -G 2 must
+    raise there rather than drop matches."""
+    import numpy as np
+
+    from smartdenovo_tpu_torch.utils.simulate import (random_genome,
+                                                      simulate_reads,
+                                                      write_sim_fasta)
+
+    fa = os.path.join(tmp, "ecoli_reads.fa")
+    rng = np.random.default_rng(46_000_000)
+    names, seqs = simulate_reads(random_genome(rng, GCUT_LEN),
+                                 coverage=COVERAGE, mean_len=9500, err=0.13,
+                                 seed=18_460, circular=True)
+    cut = os.path.join(tmp, "gcut_reads.fa")
+    write_sim_fasta(cut, names, seqs)
+    got = {}
+    for tag, path in (("E. coli", fa), ("cut", cut)):
+        runs = {G: _zmo_g(path, os.path.join(tmp, f"g{G}.ovl"), G, dev)
+                for G in (2, 1)}
+        log2, wall2, peak2, launches2, err = runs[2]
+        stages = {m[0]: float(m[1])
+                  for m in re.findall(r"stage (\w+): ([0-9.]+)s", log2)}
+        nred = re.findall(r"gpass: (\d+) redispatches", log2)
+        if err is not None:
+            if tag != "E. coli" or "exceeds the memory cap" not in err:
+                raise AssertionError(f"zmo -G 2 on {tag} raised: {err}")
+            say(f"-G 2 on {tag} ({_n_reads(path)} reads): raised "
+                f"after {wall2:.1f} s, stages so far {json.dumps(stages)}, "
+                f"K1 launches {launches2['sseg']}, peak device memory "
+                f"{peak2} bytes: {err}; -G 1: wall {runs[1][1]:.1f} s, "
+                f"peak {runs[1][2]} bytes")
+            continue
+        p2 = _ovl_pairs(os.path.join(tmp, "g2.ovl"))
+        p1 = _ovl_pairs(os.path.join(tmp, "g1.ovl"))
+        jac = len(p1 & p2) / max(1, len(p1 | p2))
+        got[tag] = launches2
+        say(f"-G 2 on {tag} ({_n_reads(path)} reads): wall "
+            f"{wall2:.1f} s, stages {json.dumps(stages)}, redispatches "
+            f"{nred[0] if nred else '?'}, K1 launches {launches2['sseg']}, "
+            f"peak device memory {peak2} bytes; -G 1: wall "
+            f"{runs[1][1]:.1f} s, peak {runs[1][2]} bytes; pairs {len(p2)} "
+            f"vs {len(p1)}, Jaccard {jac:.4f} (bar 0.97, "
+            f"tests/test_overlap_dmo.py)")
+        if jac < 0.97 or not p2:
+            raise AssertionError(f"-G 2 on {tag}: Jaccard {jac:.4f}")
+        if dev != "cpu" and launches2["sseg"] == 0:
+            raise AssertionError("-G 2 did not launch K1")
+    return got["cut"]
+
+
+def _n_reads(path):
+    with open(path) as fh:
+        return sum(1 for line in fh if line.startswith(">"))
+
+
+def gparts_against_cpu(dev):
+    """-G 2 on the 30 kb bank of tests/test_torch_overlap_asm.py, on `dev`
+    and on the CPU: equal records."""
+    import dataclasses
+
+    import numpy as np
+
+    from smartdenovo_tpu_torch.data.readbank import ReadBank
+    from smartdenovo_tpu_torch.kernels import _build
+    from smartdenovo_tpu_torch.pipeline.zmo import ZmoParams, overlap_dmo
+    from smartdenovo_tpu_torch.utils.simulate import random_genome, simulate_reads
+
+    rng = np.random.default_rng(11)
+    rb = ReadBank(*simulate_reads(random_genome(rng, 30000), coverage=10,
+                                  mean_len=5000, err=0.13, seed=12))
+    p = ZmoParams.dmo(batch_q=8, ncand=64, gparts=2)
+    out, walls = {}, {}
+    n0 = _build.LAUNCHES["sseg"]
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        out[d] = [dataclasses.astuple(o)
+                  for o in overlap_dmo(rb, p, progress=False, device=d)]
+        walls[d] = time.perf_counter() - t0
+        if d == dev:
+            k1 = _build.LAUNCHES["sseg"] - n0
+    if out[dev] != out["cpu"] or not out[dev]:
+        raise AssertionError("-G 2: cuda and cpu differ, or found nothing")
+    say(f"-G 2 on {len(rb)} reads: {len(out[dev])} records equal on {dev} "
+        f"and cpu; {dev} {walls[dev]:.1f} s (K1 {k1}), cpu "
+        f"{walls['cpu']:.1f} s")
+
+
+def _gloo_cuda_probe():
+    """Whether this build's gloo takes CUDA tensors in all_gather and
+    all_reduce (run in each rank of a local world)."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.full((4,), dist.get_rank() + 1, device="cuda:0")
+    try:
+        out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+        dist.all_gather(out, t)
+        dist.all_reduce(t)
+        return (f"yes (all_gather {[int(o[0]) for o in out]}, all_reduce "
+                f"{int(t[0])})")
+    except (RuntimeError, ValueError) as e:
+        return f"no ({type(e).__name__}: {str(e).splitlines()[0][:120]})"
+
+
+def sharded_against_cpu(dev):
+    """The sharded driver on the dry run's 60 kb sim: two gloo ranks on
+    `dev` against the same world on the CPU, and a world of one over nccl
+    against overlap_dmo on `dev`."""
+    import dataclasses
+
+    from smartdenovo_tpu_torch import graft_entry
+    from smartdenovo_tpu_torch.parallel.multihost import run_local_world
+    from smartdenovo_tpu_torch.pipeline.zmo import ZmoParams, overlap_dmo
+
+    probe = run_local_world(_gloo_cuda_probe, 2, "gloo")
+    say(f"gloo with CUDA tensors (all_gather, all_reduce): {probe[0]}")
+    out, walls = {}, {}
+    for key, args in (("gloo2 " + dev, (2, "gloo", dev)),
+                      ("gloo2 cpu", (2, "gloo", "cpu")),
+                      ("nccl1 cuda", (1, "nccl", "cuda"))):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out[key] = graft_entry.dryrun_multichip(*args)
+        walls[key] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = [dataclasses.astuple(o) for o in overlap_dmo(
+        graft_entry.sim_bank(), ZmoParams.dmo(ncand=64, batch_q=2),
+        progress=False, device=dev)]
+    walls["overlap_dmo"] = time.perf_counter() - t0
+    say("sharded on the 60 kb sim: " + ", ".join(
+        f"{k} {len(v)} records {walls[k]:.1f} s" for k, v in out.items())
+        + f", overlap_dmo {len(one)} records {walls['overlap_dmo']:.1f} s")
+    if out["gloo2 " + dev] != out["gloo2 cpu"]:
+        raise AssertionError("sharded: gloo ranks on the card and on the "
+                             "CPU differ")
+    if out["nccl1 cuda"] != one:
+        raise AssertionError("sharded: a world of one over nccl differs from "
+                             "overlap_dmo")
+
+
+def entry_against_cpu(dev):
+    """graft_entry.entry()'s forward on `dev` and on the CPU: the 8
+    outputs equal."""
+    from smartdenovo_tpu_torch import graft_entry
+
+    outs = {}
+    for d in (dev, "cpu"):
+        fn, args = graft_entry.entry(device=d)
+        outs[d] = [o.cpu() for o in fn(*args)]
+    same = [bool((a == b).all()) and a.shape == b.shape
+            for a, b in zip(outs[dev], outs["cpu"])]
+    say(f"graft_entry forward: 8 outputs, equal on {dev} and cpu: {same}")
+    if not all(same) or len(same) != 8:
+        raise AssertionError("graft_entry forward differs on cuda and cpu")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workdir", default=None,
                     help="keep the work files (E. coli reads and stage files) "
                          "here instead of a temporary directory")
-    ap.add_argument("--only", choices=["swlocal", "swwide"], default=None,
-                    help="run only this kernel's phase 3 check and timing "
-                         "(no main path, no closing result line)")
+    ap.add_argument("--only", choices=["swlocal", "swwide", "partitioned"],
+                    default=None,
+                    help="run only this kernel's phase 3 check and timing, "
+                         "or phase 10 (no main path, no closing result "
+                         "line)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     try:
@@ -1847,6 +2094,10 @@ def main() -> int:
         fa = os.path.join(tmp, "ecoli_reads.fa")
         if args.only != "swlocal":
             ecoli_reads(fa)
+        if args.only == "partitioned":
+            phase_partitioned(tmp)
+            say(gpu_line())
+            return 0
         if args.only:
             res = (phase_swlocal(dev) if args.only == "swlocal"
                    else phase_swwide(dev, fa))
@@ -1860,6 +2111,7 @@ def main() -> int:
         launches.update(phase_wholeread(tmp, WR_CUT, idents))
         launches["swlocal"] = phase_zmo(tmp)["swlocal"]
         launches["swwide"] = phase_tools(tmp)["swwide"]
+        phase_partitioned(tmp)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 

@@ -44,7 +44,9 @@ def _add_zmo(sub):
     q.add_argument("-s", "--min-score", type=int, default=200)
     q.add_argument("-A", "--ncand", type=int, default=1000)
     q.add_argument("-J", "--min-len", type=int, default=0)
-    q.add_argument("-G", "--gparts", type=int, default=1)
+    q.add_argument("-G", "--gparts", type=int, default=1,
+                   help="build the kmer index in G read-block passes to "
+                        "cap index memory (reference -G)")
     q.add_argument("-n", "--refine", action="store_true",
                    help="refine each SW hit's alignment (reference -n)")
     q.add_argument("-e", "--engine", choices=("dm", "sw"), default="dm")

@@ -302,6 +302,71 @@ def extract_zmer_pairs_sweep(qrids, qskip, cands_sorted, rm_zsd, rm_pk, rm_rd,
                        pair_budget=pair_budget)
 
 
+def build_query_occ_rows(qz_rows, qpk_rows, qvalid, *, occ_budget: int,
+                         zbits: int, max_per_read: int):
+    """Zmer-sorted occurrence table from [Q, L] query seed rows, for the
+    drivers whose queries' postings may live in another index part
+    (parallel/gpass.py, parallel/sharded.py).  The per-(q, zmer) cap is
+    the index build's (hzm_aln.h:107), so matching equals the one-index
+    sweep.  Returns (bq_cnt, bq_start, occ_q, occ_pk, qtotal); the table
+    is cut to occ_budget entries and qtotal counts them all."""
+    dev = qz_rows.device
+    Q, L = qz_rows.shape
+    ZS = 1 << zbits
+    assert Q * (ZS + 1) + ZS < (1 << 31), "(q, zmer) key packing overflow"
+    qf = torch.where(qvalid, qz_rows.to(I32), ZS).reshape(-1)
+    qq = arange32(Q, dev)[:, None].expand(Q, L).reshape(-1)
+    pk = qpk_rows.to(I32).reshape(-1)
+    # sort by (q, zmer) to apply the per-(q, zmer) cap on runs
+    key = torch.where(qf < ZS, qq * (ZS + 1) + qf, Q * (ZS + 1) + ZS)
+    key, perm = torch.sort(key, stable=True)
+    qf2, qq2, pk2 = qf[perm], qq[perm], pk[perm]
+    new = key != shift_right(key, 0)
+    new[0] = True
+    gid = cumsum32(new) - 1
+    live = qf2 < ZS
+    gcnt = segment_sum(live.to(I32), torch.where(live, gid, Q * L), Q * L)
+    keep = live & (gcnt[gid.clamp(0, Q * L - 1)] < max_per_read)
+    # re-sort by zmer alone for the occurrence table
+    qz, perm = torch.sort(torch.where(keep, qf2, ZS), stable=True)
+    occ_q = torch.where(keep, qq2, Q)[perm]
+    occ_pk = pk2[perm]
+    qtotal = keep.to(I32).sum(dtype=I32)
+    bq_cnt = segment_sum(torch.ones_like(qz), qz.clamp(max=ZS), ZS)
+    bq_start = torch.cat([_zeros(1, dev), cumsum32(bq_cnt)])
+    return bq_cnt, bq_start, occ_q[:occ_budget], occ_pk[:occ_budget], qtotal
+
+
+def extract_zmer_pairs_sweep_rows(qrids, cands_sorted, occ_tables, rm_zsd,
+                                  rm_pk, rm_rd, rm_start, read_lens, *,
+                                  cross_budget: int, kvar: int = 2,
+                                  zbits: int = 20,
+                                  pair_budget: int | None = None) -> PairBatch:
+    """The index sweep with a precomputed occurrence table
+    (`build_query_occ_rows`).  Skipped queries carry no occurrences (their
+    rows are masked when the table is built), so the slot table does not
+    mask them."""
+    dev = qrids.device
+    Q = qrids.shape[0]
+    A = cands_sorted.shape[1]
+    R = read_lens.shape[0]
+    bq_cnt, bq_start, occ_q, occ_pk, _qtotal = occ_tables
+    qi = arange32(Q, dev)[:, None]
+    slot_i = arange32(A, dev)[None, :]
+    cok = (cands_sorted >= 0) & (cands_sorted < R)
+    # live targets are unique (a query's candidates are distinct); the
+    # int8 slot + 1 wraps past 127 as in the JAX package
+    slot_table = torch.zeros((Q, R + 1), dtype=torch.int8, device=dev)
+    slot_val = ((((slot_i + 1) + 128) & 0xFF) - 128).to(torch.int8)
+    slot_table[torch.where(cok, qi, Q - 1).reshape(-1).to(torch.int64),
+               torch.where(cok, cands_sorted.clamp(0, R - 1), R).reshape(-1)
+               .to(torch.int64)] = slot_val.expand(Q, A).reshape(-1)
+    return _sweep_emit(qrids, cands_sorted, slot_table, rm_zsd, rm_pk, rm_rd,
+                       rm_start, read_lens, bq_cnt, bq_start, occ_q, occ_pk,
+                       cross_budget=cross_budget, kvar=kvar, zbits=zbits,
+                       pair_budget=pair_budget)
+
+
 def _sweep_emit(qrids, cands_sorted, slot_table, rm_zsd, rm_pk, rm_rd,
                 rm_start, read_lens, bq_cnt, bq_start, occ_q, occ_pk, *,
                 cross_budget: int, kvar: int, zbits: int,

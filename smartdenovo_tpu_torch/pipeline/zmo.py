@@ -90,7 +90,8 @@ class ZmoParams:
     # batching / budgets; cand/expand/pair budgets are sized from the
     # dataset stats, the legacy fields remain for API compatibility
     batch_q: int = 64
-    gparts: int = 1           # -G: not ported (ROADMAP queue 1 item 4)
+    gparts: int = 1           # -G: index the bank in G read-block passes
+                              #   (parallel/gpass.py; dm engine only)
     cand_budget: int = 1 << 20          # unused (kept for API compat)
     expand_budget: int = 1 << 22        # unused (kept for API compat)
     expand_budget_cap: int = 1 << 26    # hard memory ceiling
@@ -311,13 +312,26 @@ def overlap_dmo(rb: ReadBank, params: ZmoParams | None = None,
     preattempted: iterable of (name1, name2) pairs to skip (-L ledger);
     attempted_out: if a list, every attempted pair is appended (-9);
     parts/part: overlap only queries with index % parts == part (-P/-p).
+    gparts > 1 (-G) runs the read-block passes of parallel/gpass.py.
     """
     p = params or ZmoParams.dmo()
     if p.engine not in ("dm", "sw"):
         raise ValueError(f"unknown engine {p.engine!r}")
     if p.gparts > 1:
-        raise NotImplementedError(
-            "gparts > 1 (-G) is not ported yet (ROADMAP queue 1 item 4)")
+        # the JAX package's -G path runs the dm engine whatever the engine
+        # and drops the pair ledgers (ROADMAP queue 3): refuse both
+        if p.engine == "sw":
+            raise NotImplementedError(
+                "-G runs the dot-matrix engine only; -e sw with gparts > 1 "
+                "is refused")
+        if preattempted is not None or attempted_out is not None:
+            raise NotImplementedError(
+                "the pair ledgers (preattempted, attempted_out) are not "
+                "kept under gparts > 1")
+        from ..parallel.gpass import overlap_gparts
+
+        return overlap_gparts(rb, p, progress=progress, parts=parts,
+                              part=part, device=device)
     if p.matcher not in ("auto", "sweep", "join"):
         raise NotImplementedError(
             f"matcher {p.matcher!r} is not ported (ROADMAP: Do not port)")

@@ -1389,3 +1389,70 @@ def test_rescue_and_ext_cuda_match_cpu(cuda):
         assert _build.LAUNCHES["banded"] > n0["banded"]
         assert got == run_ext(rb, recs, params=ep, device="cpu") and got
     assert _build.LAUNCHES["refine"] > n0["refine"]
+
+
+def _gpass_bank():
+    from smartdenovo_tpu_torch.data.readbank import ReadBank
+    from smartdenovo_tpu_torch.utils.simulate import random_genome, simulate_reads
+
+    rng = np.random.default_rng(11)
+    return ReadBank(*simulate_reads(random_genome(rng, 30000), coverage=10,
+                                    mean_len=5000, err=0.13, seed=12))
+
+
+@pytest.mark.parametrize("G", [2, 3])
+def test_gparts_cuda_matches_cpu(cuda, G):
+    """-G on the card: records equal to the CPU's, K1 launched."""
+    import dataclasses
+
+    from smartdenovo_tpu_torch.pipeline.zmo import ZmoParams, overlap_dmo
+
+    rb = _gpass_bank()
+    p = ZmoParams.dmo(batch_q=8, ncand=64, gparts=G)
+    n0 = _build.LAUNCHES["sseg"]
+    got = [dataclasses.astuple(o)
+           for o in overlap_dmo(rb, p, progress=False, device=cuda)]
+    assert _build.LAUNCHES["sseg"] > n0
+    exp = [dataclasses.astuple(o)
+           for o in overlap_dmo(rb, p, progress=False, device="cpu")]
+    assert len(got) > 300 and got == exp
+
+
+def test_sharded_gloo_on_one_card_matches_cpu(cuda):
+    """Two gloo ranks sharing the card give the records of the same world
+    on the CPU (the dry run's sim at 30 kb)."""
+    from smartdenovo_tpu_torch import graft_entry
+    from smartdenovo_tpu_torch.parallel.multihost import run_local_world
+
+    kw = dict(ncand=64, batch_q=4)
+    got = run_local_world(graft_entry.sharded_rank, 2, "gloo", 30_000, 42,
+                          kw, 1, "cuda:0")
+    exp = run_local_world(graft_entry.sharded_rank, 2, "gloo", 30_000, 42,
+                          kw, 1, "cpu")
+    assert got[0] == got[1] and len(got[0]) > 100
+    assert got[0] == exp[0]
+
+
+def test_sharded_nccl_world_of_one_matches_overlap_dmo(cuda):
+    import dataclasses
+
+    from smartdenovo_tpu_torch import graft_entry
+    from smartdenovo_tpu_torch.pipeline.zmo import ZmoParams, overlap_dmo
+
+    got = graft_entry.dryrun_multichip(1, "nccl", "cuda", genome_len=30_000)
+    exp = [dataclasses.astuple(o) for o in overlap_dmo(
+        graft_entry.sim_bank(30_000), ZmoParams.dmo(ncand=64, batch_q=2),
+        progress=False, device=cuda)]
+    assert got == exp
+
+
+def test_graft_entry_forward_cuda_matches_cpu(cuda):
+    from smartdenovo_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry(device=cuda)
+    got = [o.cpu() for o in fn(*args)]
+    fn, args = graft_entry.entry(device="cpu")
+    exp = fn(*args)
+    assert len(got) == 8
+    for k, (g, e) in enumerate(zip(got, exp)):
+        assert torch.equal(g, e), k

@@ -45,6 +45,11 @@ COPIES = [
     ("ops.overlap_dp:reverse_batch", ()),
     ("ops.index:_length_batches", ()),
     ("ops.index:_pad_rids", ()),
+    ("parallel.sharded:shard_bounds", ()),
+    ("parallel.sharded:k16_freq_rule", ()),
+    ("parallel.sharded:shard_tier", (
+        ("Common flat tier across shards (one shape for every shard)",
+         "Common posting tier across shards (one compile of the builder)"),)),
     ("graph.gbo", ("align_pairs_sw", "rescue_overlaps")),
     ("graph.gbo:rescue_overlaps", (
         ("params: GboParams | None = None,\n                    *, "
@@ -97,13 +102,16 @@ def test_port_imports_nothing_of_jax_package():
     n, bad, loaded = port_import_walk()
     assert not bad, bad
     assert n >= 25
-    # the SW (zmo) slice's and the side tools' modules are among those
-    # walked, and none of them needs h5py
+    # the SW (zmo) slice's, the side tools' and the partitioned
+    # overlapper's modules are among those walked, and none of them needs
+    # h5py
     assert {"smartdenovo_tpu_torch." + m for m in (
         "ops.overlap_dp", "ops.zmo_sw", "ops.index", "graph.gbo",
         "pipeline.ext", "pipeline.aln_tools", "pipeline.corr",
         "pipeline.h5f5q", "pipeline.idx", "pipeline.mer", "graph.obt",
-        "utils.dbmfa", "utils.stats", "utils.upgma")} <= set(loaded)
+        "utils.dbmfa", "utils.stats", "utils.upgma", "parallel.gpass",
+        "parallel.sharded", "parallel.multihost", "graft_entry")
+    } <= set(loaded)
     assert "h5py" not in loaded
 
 

@@ -144,14 +144,22 @@ def test_port_imports_no_jax():
 
 
 def test_unported_paths_raise(bank, tmp_path):
-    """What the port does not run yet raises, naming its ROADMAP item: -G
-    (item 4) and the vtab matcher; the whole-read consensus engine and the
-    side tools, which it runs since they were ported, do not (`pre` writes
-    the JAX package's bytes)."""
-    for kw in (dict(gparts=2), dict(matcher="vtab"),
-               dict(gparts=2, engine="sw")):
+    """What the port refuses raises: the vtab matcher, and -G with the sw
+    engine (the JAX package runs dm there); the paths it runs since they
+    were ported do not: -G 2 (records and `zmo -G 2` bytes equal to the
+    JAX package's, at batch_q 8 where no budget overflows), the whole-read
+    consensus engine and the side tools (`pre` writes the JAX package's
+    bytes)."""
+    for kw in (dict(matcher="vtab"), dict(gparts=2, engine="sw")):
         with pytest.raises(NotImplementedError):
             tzmo.overlap_dmo(bank, tzmo.ZmoParams.dmo(**kw), device="cpu")
+    kw = dict(gparts=2, batch_q=8, ncand=64)
+    trec = tzmo.overlap_dmo(bank, tzmo.ZmoParams.dmo(**kw), progress=False,
+                            device="cpu")
+    jrec = jzmo.overlap_dmo(bank, jzmo.ZmoParams.dmo(**kw), progress=False)
+    assert len(trec) > 300
+    assert ([dataclasses.astuple(o) for o in trec]
+            == [dataclasses.astuple(o) for o in jrec])
     fa = str(tmp_path / "r.fa")
     write_sim_fasta(fa, bank.names[:3], [bank.get(i) for i in range(3)])
     from smartdenovo_tpu.cli import main as jmain
@@ -161,9 +169,14 @@ def test_unported_paths_raise(bank, tmp_path):
     assert jmain(["pre", fa, "-o", str(outs[1])]) == 0
     assert outs[0].read_bytes() == outs[1].read_bytes()
     assert outs[0].read_bytes().count(b">") == 3
-    with pytest.raises(NotImplementedError, match="item 4"):
-        cli.main(["zmo", "-i", fa, "-o", str(tmp_path / "x.ovl"), "-G", "2",
-                  "--device", "cpu"])
+    fa_all = str(tmp_path / "all.fa")
+    write_sim_fasta(fa_all, bank.names, [bank.get(i) for i in range(len(bank))])
+    argv = ["zmo", "-i", fa_all, "-G", "2", "--batch-q", "8", "-A", "64"]
+    ovls = [tmp_path / "g2_port.ovl", tmp_path / "g2_jax.ovl"]
+    assert cli.main(argv + ["-o", str(ovls[0]), "--device", "cpu"]) == 0
+    assert jmain(argv + ["-o", str(ovls[1])]) == 0
+    assert ovls[0].read_bytes().count(b"\n") == len(trec)
+    assert ovls[0].read_bytes() == ovls[1].read_bytes()
     # the whole-read consensus engine runs on the CPU: cns -a/-V, f5q units
     # and seg_engine=False (4 reads of 600 bp at offsets 0-300 of read 0)
     reads = [bank.get(0)[100 * k: 100 * k + 600] for k in range(4)]
