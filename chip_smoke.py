@@ -34,8 +34,12 @@ non-zero:
             beside it); the wide-band SW local DP (swwide) on the call
             with the most rows that `cyc` makes on phase 5's E. coli reads
             (2,048 reads against their reverse complements at LA 16,384,
-            W 1600; the reads are simulated before phase 3), timed and
-            held equal to its plain version, its bound over the live cells
+            W 1600; the reads are simulated before phase 3: every pair on
+            its register path of unit band steps), timed and held equal
+            to its plain version, its bound over the live cells, and a
+            small batch of wide band steps at W 1600 (its shared-memory
+            path) held equal too; its block shape and the time of each
+            call and of the live-row plan are printed
 4. join     the overlapper with the sort-join matcher on a deep 25 kb
             simulation, on cuda and on cpu: the overlap lists must be
             equal record for record, and K2 and K3 must have launched
@@ -97,15 +101,18 @@ non-zero:
                 them replaced by seeded palindromes folded at known points
                 (some off centre): every planted read cut at its fold as the
                 JAX package's rule gives, every other read kept whole,
-                swwide launched; wall time and launches
+                swwide launched; wall time and launches, and the summed
+                CUDA-event time of swwide's launches beside the wall
             (b) on cuda and on cpu, the same bytes: cyc on a 24-read cut of
                 (a) with 4 palindromes, pairaln on 64 consecutive pairs of
                 overlapping E. coli reads, dif on 32 reads of a 12 kb locus,
                 dotplot on two overlapping reads, mer on 500 reads, and
                 join_fragments_dag on tests/test_corr.py's gap fill; swwide,
                 swlocal, banded and segdp launched
-            (c) `mer` and `idx` through the CLI on the E. coli reads, their
-                times; load_indexes of the snapshot equal to the build
+            (c) `mer` through the CLI on the E. coli reads and `idx` on the
+                first IDX_READS of them (a depth cut: idx is host sorts and
+                zlib, ~135 s on all 8,354 reads), their times; load_indexes
+                of the snapshot equal to the build
 
 10. partitioned  the read-block-partitioned overlapper on cuda:
             (a) `zmo -G 2` and `-G 1` through the CLI (default dmo flags,
@@ -149,6 +156,7 @@ GENOME_LEN = 4_600_000      # scripts/sim_ecoli.py
 COVERAGE = 18
 CNS_CUT = 1_500_000         # bp of the E. coli layout that phase 6 (c) polishes
 WR_CUT = 500_000            # bp of it that phase 7 (c) and (d) align whole
+IDX_READS = 2_100           # E. coli reads that phase 9 (c) indexes (host sorts)
 GOLD = os.path.join(ROOT, "tests", "goldens")
 I32_MAX = (1 << 31) - 1
 # H100 SXM peaks for a kernel's bound: HBM3 at 3.35 TB/s (NVIDIA's data
@@ -804,15 +812,43 @@ def cyc_chunk(fa, dev):
     return aln_tools.local_inputs([pairs[k] for k in idx], LA, dev), LA
 
 
+def _wide_step_batch(seed, B=64, LA=1024):
+    """B pairs whose band moves more than one column a row (slopes of 1.2
+    to 4 columns, and a few negative), b a random sequence and a its codes
+    along that slope at 10% substitutions, so the DP scores along the band:
+    the shared-memory path of swwide.  The seven numpy inputs."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    A = np.full((B, LA), 4, np.uint8)
+    Bm = rng.integers(0, 4, (B, 4 * LA + 64)).astype(np.uint8)
+    sl = rng.integers(int(1.2 * 4096), 4 * 4096, B).astype(np.int32)
+    sl[::16] = -4096
+    for k in range(B):
+        cols = (np.arange(LA, dtype=np.int64) * abs(int(sl[k]))) >> 12
+        a = Bm[k, cols]
+        sub = rng.random(LA) < 0.1
+        A[k] = np.where(sub, (a + 1) % 4, a)
+    alen = np.full(B, LA, np.int32)
+    blen = np.full(B, Bm.shape[1], np.int32)
+    zero = np.zeros(B, np.int32)
+    return [A, Bm, alen, blen, zero, zero.copy(), sl]
+
+
 def phase_swwide(dev, fa):
     """swwide (csrc/swwide.cu) on the call of `cyc` with the most rows on
     the E. coli reads (cyc_chunk: 2,048 reads of 8,193-16,384 bp against
-    their reverse complements at LA 16,384, W 1600; the grid's blocks each
-    take several pairs from the counter), timed (median of 5 calls, each alone, and the
+    their reverse complements at LA 16,384, W 1600, every pair on the
+    register path of unit band steps; the grid's blocks each take several
+    pairs from the counter), timed (median of 5 calls, each alone, and the
     mean of 5 in a row) and held equal to its plain version on the same
-    inputs (tolerance 0), whose one call is timed too.  The bound counts
-    the call's live cells (sw_live_rows_host x W) at SW_OPS_PER_CELL int32
-    operations, against the inputs' bytes."""
+    inputs (tolerance 0), whose one call is timed too; then a batch of 64
+    pairs of wide band steps at W 1600 and LA 1,024 (_wide_step_batch: the
+    shared-memory path), timed and held equal the same way.  The bound
+    counts the cyc call's live cells (sw_live_rows_host x W) at
+    SW_OPS_PER_CELL int32 operations, against the inputs' bytes.  Prints
+    the block shape (swwide_shape) and the time of each call and of the
+    cyc call's live-row plan (live_rows, unit_steps, longest_first)."""
     import torch
 
     from smartdenovo_tpu_torch.kernels import _build
@@ -822,6 +858,8 @@ def phase_swwide(dev, fa):
     t, LA = cyc_chunk(fa, dev)
     live = sw_live_rows_host([v.cpu().numpy() for v in t], LA, W)
     kw = dict(LA=LA, W=W)
+    if not bool(overlap_dp.unit_steps(*t[2:], LA, W).all()):
+        raise AssertionError("a cyc pair is off swwide's unit-step path")
     n0 = _build.LAUNCHES["swwide"]
     got = overlap_dp.banded_local_dp(*t, **kw)
     torch.cuda.synchronize()
@@ -840,20 +878,40 @@ def phase_swwide(dev, fa):
                              f"abs err {err})")
     ms_row = cuda_ms(lambda: overlap_dp.banded_local_dp(*t, **kw), reps=5,
                      in_a_row=True)
+    plan_ms = cuda_ms(lambda: (overlap_dp.longest_first(
+        *overlap_dp.live_rows(*t[2:], LA, W)),
+        overlap_dp.unit_steps(*t[2:], LA, W)), reps=5)
+    # the shared-memory path: wide band steps
+    x = [torch.from_numpy(v).to(dev) for v in _wide_step_batch(12)]
+    LAw = x[0].shape[1]
+    unit = overlap_dp.unit_steps(*x[2:], LAw, W)
+    gw = overlap_dp.banded_local_dp(*x, LA=LAw, W=W)
+    ew = overlap_dp.banded_local_dp_plain(*x, LA=LAw, W=W)
+    errw = max(max_abs(g, e) for g, e in zip(gw, ew))
+    if errw or bool(unit.any()) or int(ew[0].max()) < 400:
+        raise AssertionError(f"swwide's wide-step batch: max abs err {errw}, "
+                             f"{int(unit.sum())} unit pairs, best "
+                             f"{int(ew[0].max())}")
+    ms_w = cuda_ms(lambda: overlap_dp.banded_local_dp(*x, LA=LAw, W=W), reps=5)
     alen = t[2].clamp(max=LA)
     nbytes = int(alen.sum() + t[3].sum()) + 5 * 4 * t[2].numel() + 16 * t[2].numel()
     tm = timing(ms, pms, nbytes, SW_OPS_PER_CELL * int(live.sum()) * W)
     B = t[2].numel()
+    P, warps = overlap_dp.swwide_shape(W)
     nsm = torch.cuda.get_device_properties(dev).multi_processor_count
     say(f"kernel swwide B={B} LA={LA} W={W} ({int(live.sum())} live rows, "
-        f"longest {int(live.max())}; one block of 256 threads a pair, "
-        f"{nsm} SMs): {ms:.3f} ms ({ms_row:.3f} in a row), plain {pms:.1f} "
-        f"ms, live-cell bound {tm['bound_ms']:.3f} ms ({tm['bound_by']}), "
-        f"share {tm['share']:.4f}; equal (best scores {int(exp[0].max())} "
-        f"max, {int((exp[0] >= 400).sum())} of {B} at 400 or more)")
-    return dict(tm, max_abs_err=err, shape=f"B {B}, LA {LA}, W {W}",
+        f"longest {int(live.max())}; a block of {warps} warps x 32 threads x "
+        f"{P} lanes a pair, {nsm} SMs): {ms:.3f} ms ({ms_row:.3f} in a row; "
+        f"of it the live-row plan {plan_ms:.3f} ms), plain {pms:.1f} ms, "
+        f"live-cell bound {tm['bound_ms']:.3f} ms ({tm['bound_by']}), share "
+        f"{tm['share']:.4f}; equal (best scores {int(exp[0].max())} max, "
+        f"{int((exp[0] >= 400).sum())} of {B} at 400 or more); wide steps "
+        f"(B {x[0].shape[0]}, LA {LAw}, shared-memory path): {ms_w:.3f} ms, "
+        f"equal (best {int(ew[0].max())})")
+    return dict(tm, max_abs_err=max(err, errw), shape=f"B {B}, LA {LA}, W {W}",
                 live_rows=int(live.sum()), longest_live=int(live.max()),
-                ms_in_a_row=ms_row)
+                ms_in_a_row=ms_row, plan_ms=plan_ms, block=[warps, P],
+                wide_step_ms=ms_w)
 
 
 def _plain_wr(kind, args, LA, W):
@@ -1606,9 +1664,9 @@ def phase_tools(tmp, dev="cuda"):
     """(a) `cyc` through the CLI on phase 5's E. coli reads with 16 of them
     replaced by seeded palindromes, every one cut at its fold and every
     other read whole; (b) cyc, pairaln, dif, dotplot, mer and
-    join_fragments_dag on `dev` and on the CPU, equal; (c) `mer` and `idx`
-    through the CLI on the E. coli reads, the snapshot read back equal to
-    the build.  Returns the launches of (a), read with the counts set to 0
+    join_fragments_dag on `dev` and on the CPU, equal; (c) `mer` through
+    the CLI on the E. coli reads and `idx` on the first IDX_READS of them,
+    the snapshot read back equal to the build.  Returns the launches of (a), read with the counts set to 0
     just before it."""
     t0 = time.perf_counter()
     launches, cut = tools_cyc(tmp, dev)
@@ -1646,9 +1704,30 @@ def tools_cyc(tmp, dev):
                               else (0, fold, L))
     fa = _write_fa(os.path.join(tmp, "ecoli_cyc.fa"), names, seqs)
     out = os.path.join(tmp, "ecoli.cyc")
+    # swwide's launches timed between CUDA events on the wrapper's stream
+    lib = _build.lib() if dev != "cpu" else None
+    real, events = (lib.swwide_dp if lib else None), []
+
+    def timed(*args):
+        import torch
+
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        err = real(*args)
+        ev[1].record()
+        events.append(ev)
+        return err
+
     _build.reset_launches()
-    _log, wall = _run_cli(["cyc", fa, "-o", out, "--device", dev])
+    if lib:
+        lib.swwide_dp = timed
+    try:
+        _log, wall = _run_cli(["cyc", fa, "-o", out, "--device", dev])
+    finally:
+        if lib:
+            lib.swwide_dp = real
     launches = dict(_build.LAUNCHES)
+    sw_ms = sum(a.elapsed_time(b) for a, b in events)
     recs = {}
     with open(out) as fh:
         for line in fh:
@@ -1658,7 +1737,8 @@ def tools_cyc(tmp, dev):
     cut = [(n, r) for n, r in recs.items()
            if n not in expect and r != (0, r[2], r[2])]
     say(f"tools cyc on {len(recs)} E. coli reads ({sum(len(s) for s in seqs)} "
-        f"bases, {len(expect)} planted palindromes): {wall:.1f} s; planted "
+        f"bases, {len(expect)} planted palindromes): {wall:.1f} s, of it "
+        f"{len(events)} swwide launches {sw_ms:.1f} ms (CUDA events); planted "
         f"records {sorted(expect.values())[:4]}...; other reads cut: "
         f"{cut[:5]}; launches {json.dumps(launches)}")
     if len(recs) != len(names) or bad or cut:
@@ -1777,10 +1857,10 @@ def tools_against_cpu(tmp, cyc_fa, dev):
 
 
 def tools_mer_idx(tmp, dev):
-    """`mer` and `idx` through the CLI on the E. coli reads; the in-memory
-    indexes that idx saves are caught on their way to save_indexes, and
-    load_indexes of the snapshot must give them back, array by array and
-    dtype by dtype."""
+    """`mer` through the CLI on the E. coli reads and `idx` on the first
+    IDX_READS of them; the in-memory indexes that idx saves are caught on
+    their way to save_indexes, and load_indexes of the snapshot must give
+    them back, array by array and dtype by dtype."""
     import torch
 
     from smartdenovo_tpu_torch.pipeline import idx
@@ -1795,10 +1875,14 @@ def tools_mer_idx(tmp, dev):
         caught.append((kidx, zidx))
         save(path, kidx, zidx)
 
+    cut = os.path.join(tmp, "ecoli_idx_cut.fa")
+    with open(cut, "w") as fh:
+        fh.write("".join(f">{n}\n{q}\n" for n, q in
+                         list(read_fasta(fa).items())[:IDX_READS]))
     npz = os.path.join(tmp, "ecoli.idx.npz")
     idx.save_indexes = keep
     try:
-        _log, iwall = _run_cli(["idx", fa, "-o", npz, "--device", dev])
+        _log, iwall = _run_cli(["idx", cut, "-o", npz, "--device", dev])
     finally:
         idx.save_indexes = save
     t0 = time.perf_counter()
@@ -1818,7 +1902,8 @@ def tools_mer_idx(tmp, dev):
                 zidx.max_per_read))
     say(f"tools mer on the E. coli reads: {mwall:.1f} s, {len(rows)} depths, "
         f"{sum(c for _, c in rows)} distinct k-mers, most at depth "
-        f"{max(rows, key=lambda r: r[1])[0]}; idx: {iwall:.1f} s "
+        f"{max(rows, key=lambda r: r[1])[0]}; idx on {kidx.n_reads} of the "
+        f"reads: {iwall:.1f} s "
         f"({kidx.n_postings} k-mer and {zidx.zmers.numel()} z-mer postings, "
         f"{os.path.getsize(npz)} bytes), load_indexes {lwall:.1f} s, "
         f"{'equal' if not diff and meta else f'differs in {diff}'}")

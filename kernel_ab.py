@@ -3,7 +3,8 @@
 turns: other, this, this, other.
 
     python3 kernel_ab.py OTHER_ROOT [--kernels banded refine refine5q swlocal
-                                               zmo] [--B 64 528] [--LA 32768]
+                                               swwide zmo] [--B 64 528]
+                                               [--LA 32768]
 
 OTHER_ROOT is another checkout (for example `git archive` of an earlier
 commit unpacked into a directory that .gitignore lists).  The inputs are
@@ -11,10 +12,12 @@ chip_smoke.py phase 3's, made once here and saved: for the whole-read DPs
 (the default kernels) `_wr_inputs` at each B and LA (W 256 for banded, 128
 for the refines, seeds 31-33); for swlocal (the SW local DP) one batch of
 the E. coli zmo path, `_sw_batch(77)` (2,048 pairs, W 256; --B and --LA do
-not apply).  `zmo` is not one kernel but chip_smoke.py phase 8 (a), the
-end-to-end run that holds swlocal: `asm -e zmo` through the CLI on the
-E. coli reads (`ecoli_reads`), whose `phase2` stage, wall and overlap count
-it reports.  Each turn is a process of its own with its checkout's root
+not apply); for swwide (the wide-band SW local DP) phase 3's call of `cyc`
+on the E. coli reads, `cyc_chunk` (2,048 reads against their reverse
+complements, LA 16,384, W 1600; timed over 5 calls each).  `zmo` is not
+one kernel but chip_smoke.py phase 8 (a), the end-to-end run that holds
+swlocal: `asm -e zmo` through the CLI on the E. coli reads
+(`ecoli_reads`), whose `phase2` stage, wall and overlap count it reports.  Each turn is a process of its own with its checkout's root
 first on sys.path, which builds that checkout's kernels and times each
 call alone through that checkout's wrappers (`chip_smoke.cuda_ms`, median
 of 10 CUDA-event times).  Prints a line per turn and kernel, the card's
@@ -35,6 +38,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 KINDS = (("banded", 256, 31), ("refine", 128, 32), ("refine5q", 128, 33))
 WR_KINDS = tuple(k for k, _, _ in KINDS)
 SW_W = 256
+CYC_W = 1600
 
 
 def one_turn(root, inputs, kernels, Bs, LA):
@@ -73,6 +77,16 @@ def one_turn(root, inputs, kernels, Bs, LA):
         out[f"swlocal B={args[0].shape[0]} LA={LAs}"] = ms
         del args
         torch.cuda.empty_cache()
+    if "swwide" in kernels:
+        from smartdenovo_tpu_torch.ops import overlap_dp
+
+        args = [torch.from_numpy(z[f"swwide_{t}"]).to(dev) for t in range(7)]
+        LAc = int(z["swwide_LA"])
+        ms = cs.cuda_ms(lambda: overlap_dp.banded_local_dp(*args, LA=LAc,
+                                                           W=CYC_W), reps=5)
+        out[f"swwide B={args[0].shape[0]} LA={LAc}"] = ms
+        del args
+        torch.cuda.empty_cache()
     for B in Bs:
         for kind, W, _ in KINDS:
             if kind not in kernels:
@@ -91,7 +105,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other", help="root of the other checkout")
     ap.add_argument("--kernels", nargs="+", default=list(WR_KINDS),
-                    choices=list(WR_KINDS) + ["swlocal", "zmo"])
+                    choices=list(WR_KINDS) + ["swlocal", "swwide", "zmo"])
     ap.add_argument("--B", type=int, nargs="+", default=[64, 528])
     ap.add_argument("--LA", type=int, default=32768)
     ap.add_argument("--turn", default=None, help=argparse.SUPPRESS)
@@ -110,8 +124,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         inputs = os.path.join(tmp, "inputs.npz")
         arrays = {}
-        if "zmo" in args.kernels:
+        if "zmo" in args.kernels or "swwide" in args.kernels:
             cs.ecoli_reads(os.path.join(tmp, "ecoli_reads.fa"))
+        if "swwide" in args.kernels:
+            x, LAc = cs.cyc_chunk(os.path.join(tmp, "ecoli_reads.fa"), "cpu")
+            arrays.update({f"swwide_{t}": v.numpy() for t, v in enumerate(x)})
+            arrays["swwide_LA"] = np.int64(LAc)
         if "swlocal" in args.kernels:
             x, LAs = cs._sw_batch(77, W=SW_W)
             arrays.update({f"swlocal_{t}": v for t, v in enumerate(x)})

@@ -88,6 +88,37 @@ __device__ __forceinline__ int warp_carry(int O, int gP_lane, const ScanSrc& src
   return max(w, u);
 }
 
+// warp_carry with a payload, for a scan that keeps the count of the source
+// that reaches each carry (csrc/swwide.cu): with (O, OC) the lane's last
+// value and its count, returns X' such that X' + g P (lane - 1) is the
+// carry at the lane's cell before its first (as warp_carry's X; lane 0
+// gets its own value: the caller has no carry there) and sets XC to the
+// count of its source lane, the nearest one on a tie (the JAX scan keeps
+// the right operand).  The three radix-4 rounds run on keys
+// (max(O, floor) - g P lane) 32 + lane, so a tie of value goes to the
+// higher lane, and the count comes with one shuffle from the winning lane.
+// The caller picks floor so that a value clamped there can win no carry it
+// would have lost, and the keys fit in 32 bits.
+__device__ __forceinline__ int warp_carry_payload(int O, int OC, int gP_lane, int floor,
+                                                  int lane, const ScanSrc& src,
+                                                  int& XC) {
+  const int key = (max(O, floor) - gP_lane) * 32 + lane;
+  int w;
+  {
+    const int u1 = __shfl_sync(FULL, key, src.s[0]), u2 = __shfl_sync(FULL, key, src.s[1]),
+              u3 = __shfl_sync(FULL, key, src.s[2]), u4 = __shfl_sync(FULL, key, src.s[3]);
+    w = __vimax3_s32(u1, u2, max(u3, u4));
+  }
+  {
+    const int u1 = __shfl_sync(FULL, w, src.s[3]), u2 = __shfl_sync(FULL, w, src.s[4]),
+              u3 = __shfl_sync(FULL, w, src.s[5]);
+    w = __vimax3_s32(w, u1, max(u2, u3));
+  }
+  w = max(w, __shfl_sync(FULL, w, src.s[6]));
+  XC = __shfl_sync(FULL, OC, w & 31);
+  return w >> 5;
+}
+
 // The P direction bytes of a thread, packed four a word, to dst (the
 // thread's P bytes of a row of W = 32 P bytes): one store where the
 // alignment allows it.

@@ -76,8 +76,10 @@ _SIGNATURES = {
     # a, b, blen, tb, qb, slope, i0, i1, order, counter, B, LA, LB, W,
     # match, mismatch, gap, out, stream
     "swlocal_dp": [_P] * 10 + [_I32] * 7 + [_P] * 2,
-    # the same for any W up to 4096 (csrc/swwide.cu)
-    "swwide_dp": [_P] * 10 + [_I32] * 7 + [_P] * 2,
+    # the same for any W up to 4096 (csrc/swwide.cu), with unit [B] u8
+    # after i1 (the pairs whose band moves 0 or 1 column a row) and the
+    # block shape P, warps after W
+    "swwide_dp": [_P] * 11 + [_I32] * 9 + [_P] * 2,
 }
 _RESTYPES = {"sseg_scratch_ints": _I64, "jpost_scratch_ints": _I64,
              "pexpand_scratch_ints": _I64}   # the others return an int

@@ -19,7 +19,9 @@ other W up to SWWIDE_MAX_W (wtcyc's 1600; one block a pair); on the CPU
 it runs `banded_local_dp_plain`, a row loop in PyTorch that follows the
 JAX scan step for step.  Both kernels run only each pair's live rows
 (`live_rows`), pairs longest first (`longest_first`), taking the next
-pair from a counter.  `chain_band_params` and `reverse_batch` are copies of
+pair from a counter; swwide keeps a pair's rows in registers where its
+band moves 0 or 1 column a row (`unit_steps`), in a block cut to W
+(`swwide_shape`).  `chain_band_params` and `reverse_batch` are copies of
 the JAX package's host helpers.
 """
 
@@ -34,6 +36,11 @@ NEG_INF = -(1 << 28)
 SLOPE_SHIFT = 12
 _I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
 SWWIDE_MAX_W = 4096   # the widest band csrc/swwide.cu takes
+SWWIDE_MAX_P = 12     # its lanes a thread (the kernel's template instances)
+SWWIDE_MAX_WARPS = 16
+# its warps a block where its launch bounds hold fewer: P 10 (W 1600's
+# instance) is built for 2 blocks of 10 warps a SM (csrc/swwide.cu max_warps)
+SWWIDE_WARP_CAPS = {10: 10}
 
 
 def chain_band_params(tb, te, qb, qe):
@@ -191,6 +198,36 @@ def _ceil_div(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return -torch.div(-x, d, rounding_mode="floor")
 
 
+def _monotone(alen, blen, band_tb, band_qb, band_slope, LA: int, W: int):
+    """The inputs as int64 (alen, blen, tb, qb, slope), R = min(alen, LA),
+    and mono [B] bool: slope >= 0 and none of band_bases' int32 steps wraps
+    over rows 0 .. R (which holds for every row when it holds at both
+    ends, each step being monotone), so the band start is non-decreasing."""
+    # every step runs on both ends of the pair (rows 0 and R) and on both
+    # thresholds at once: a few dozen small ops a call, not a hundred
+    al, bl, tb, qb, sl = torch.stack(
+        (alen, blen, band_tb, band_qb, band_slope)).to(torch.int64)
+    R = al.clamp(max=LA)
+    d = torch.stack((torch.zeros_like(R), R.clamp(min=0))) - tb
+    p = d * sl
+    c = qb + (p >> SLOPE_SHIFT)
+    steps = torch.stack((d, p, c, c - W // 2))
+    fits = ((steps >= _I32_MIN) & (steps <= _I32_MAX)).flatten(0, 1).all(0)
+    return al, bl, tb, qb, sl, R, (sl >= 0) & fits
+
+
+def unit_steps(alen, blen, band_tb, band_qb, band_slope, LA: int, W: int):
+    """[B] bool: the pairs whose band start moves 0 or 1 column from each
+    row to the next over rows 0 .. min(alen, LA), so over every live row:
+    a monotone band (`_monotone`) with 0 <= slope <= 1 << 12, whose
+    unclipped start floor((i - tb) slope / 4096) rises by 0 or 1 a row and
+    whose clip keeps that.  csrc/swwide.cu keeps these pairs' rows in
+    registers; the others read theirs from shared memory."""
+    *_, sl, _R, mono = _monotone(alen, blen, band_tb, band_qb, band_slope,
+                                 LA, W)
+    return mono & (sl <= 1 << SLOPE_SHIFT)
+
+
 def live_rows(alen, blen, band_tb, band_qb, band_slope, LA: int, W: int, *,
               match: int = 2, mismatch: int = -5, gap: int = -3):
     """Per pair, the first and last row (i0, i1), [B] int32 each, that can
@@ -198,10 +235,8 @@ def live_rows(alen, blen, band_tb, band_qb, band_slope, LA: int, W: int, *,
     pair with none.
 
     Rows are 1 .. min(alen, LA); a pair with alen or blen <= 0 has none.
-    Where the band start is non-decreasing in the row (slope >= 0 and none
-    of the int32 steps of band_bases wraps over rows 0 .. min(alen, LA),
-    which holds for every row when it holds at both ends, each step being
-    monotone), two runs of rows are dead:
+    Where the band start is non-decreasing in the row (`_monotone`), two
+    runs of rows are dead:
     - the head, whose band start is clipped to -(W-1): every column is
       <= 0, so the row is masked whole and leaves the carry at zeros, the
       starting state; i0 is the first row whose band reaches column 1;
@@ -213,20 +248,11 @@ def live_rows(alen, blen, band_tb, band_qb, band_slope, LA: int, W: int, *,
       the last row before that; with other scores the tail stays.
     Any other pair gets the whole range.  Closed forms of band_bases'
     formula in int64: floor(x / 4096) >= T holds iff x >= 4096 T."""
-    # every step runs on both ends of the pair (rows 0 and R) and on both
-    # thresholds at once: a few dozen small ops a call, not a hundred
-    al, bl, tb, qb, sl = torch.stack(
-        (alen, blen, band_tb, band_qb, band_slope)).to(torch.int64)
-    R = al.clamp(max=LA)
-    d = torch.stack((torch.zeros_like(R), R.clamp(min=0))) - tb
-    p = d * sl
-    c = qb + (p >> SLOPE_SHIFT)
-    steps = torch.stack((d, p, c, c - W // 2))
-    fits = ((steps >= _I32_MIN) & (steps <= _I32_MAX)).flatten(0, 1).all(0)
-    mono = (sl >= 0) & fits
+    al, bl, tb, qb, sl, R, mono = _monotone(alen, blen, band_tb, band_qb,
+                                            band_slope, LA, W)
     # the head, c(i) > -(W-1): floor((i - tb) sl / 4096) >= T; the tail, the
     # first i whose row i - 1 starts at blen, c(i-1) >= blen: >= U
-    th = torch.stack((2 - W // 2 - qb, bl + W // 2 - qb))
+    th = torch.stack((2 - W + W // 2 - qb, bl + W // 2 - qb))
     first = torch.where(
         sl > 0, tb + _ceil_div(th * (1 << SLOPE_SHIFT), sl.clamp(min=1)),
         torch.where(th <= 0, 0, R + 1)).clamp(min=0)
@@ -257,6 +283,17 @@ def sw_kernel(W: int) -> str:
     raise ValueError(f"banded_local_dp: W={W} must be 1 to {SWWIDE_MAX_W}")
 
 
+def swwide_shape(W: int) -> tuple[int, int]:
+    """(P, warps): csrc/swwide.cu's block at band width W, warps x 32
+    threads of P lanes each covering the W lanes: the fewest dead lanes
+    (32 P warps - W), then the most lanes a thread (the fewest scan and
+    barrier instructions a cell).  W 1600 is 5 warps of 10 lanes."""
+    shapes = [(P, -(-W // (32 * P))) for P in range(1, SWWIDE_MAX_P + 1)]
+    return min(((P, w) for P, w in shapes
+                if w <= SWWIDE_WARP_CAPS.get(P, SWWIDE_MAX_WARPS)),
+               key=lambda s: (32 * s[0] * s[1] - W, -s[0]))
+
+
 def _sw_cuda(a, b, alen, blen, band_tb, band_qb, band_slope, *, LA, W,
              match=2, mismatch=-5, gap=-3):
     """The launch of sw_kernel(W) on the pairs' live rows, longest first."""
@@ -272,6 +309,12 @@ def _sw_cuda(a, b, alen, blen, band_tb, band_qb, band_slope, *, LA, W,
         raise ValueError(f"banded_local_dp: bad shapes {tuple(a.shape)} "
                          f"{tuple(b.shape)}")
     kernel = sw_kernel(W)
+    # swwide's scan keys hold a score in 26 bits: a row raises the best by
+    # at most max(match, mismatch, gap, 0) + max(gap, 0) W
+    if kernel == "swwide" and (abs(gap) > SWWIDE_MAX_W or LA * (
+            max(match, mismatch, gap, 0) + max(gap, 0) * W) >= 1 << 24):
+        raise ValueError("banded_local_dp: swwide takes |gap| <= 4096 and "
+                         "scores under 2^24")
     if any(t.device != dev
            for t in (b, alen, blen, band_tb, band_qb, band_slope)):
         raise ValueError("banded_local_dp: inputs on different devices")
@@ -280,6 +323,11 @@ def _sw_cuda(a, b, alen, blen, band_tb, band_qb, band_slope, *, LA, W,
         return tuple(out)
     i0, i1 = live_rows(alen, blen, band_tb, band_qb, band_slope, LA, W,
                        match=match, mismatch=mismatch, gap=gap)
+    per_pair, shape = [i0, i1], ()
+    if kernel == "swwide":
+        per_pair.append(unit_steps(alen, blen, band_tb, band_qb, band_slope,
+                                   LA, W))
+        shape = swwide_shape(W)
     order = longest_first(i0, i1)
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     args = [t.contiguous() for t in (a, b, blen, band_tb, band_qb,
@@ -287,9 +335,9 @@ def _sw_cuda(a, b, alen, blen, band_tb, band_qb, band_slope, *, LA, W,
     fn = getattr(_build.lib(), kernel + "_dp")
     _build.LAUNCHES[kernel] += 1
     _build.check(fn(
-        *(t.data_ptr() for t in args), i0.data_ptr(), i1.data_ptr(),
-        order.data_ptr(), counter.data_ptr(), B, LA, LB, W, match, mismatch,
-        gap, out.data_ptr(), _build.stream_of(a)),
+        *(t.data_ptr() for t in args + per_pair), order.data_ptr(),
+        counter.data_ptr(), B, LA, LB, W, *shape, match, mismatch, gap,
+        out.data_ptr(), _build.stream_of(a)),
         kernel + "_dp")
     return tuple(out)
 

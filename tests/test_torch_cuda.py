@@ -1220,6 +1220,115 @@ def test_swwide_cuda_tied_bests(cuda):
             assert got[3].tolist() == cols
 
 
+def sw_spread_tie_pairs(rng, LA, W, sep, far, L=40):
+    """sw_tie_pairs' four cases with the copies far apart, so that the tied
+    cells fall in different threads and warps: (0) one row, columns L and
+    2 L + sep; (1) rows L and 2 L + sep, one column; (2) both; (3) row L
+    at column 2 L + far against row 2 L + sep at column L.  The band (tb 0,
+    qb W/2, the given slope, 0 by default) starts at column 0: at slope 0
+    the JAX order gives scores 2 L at rows L and columns (L, L, L, 2 L +
+    far)."""
+    X, Y = (rng.integers(0, 4, L).astype(np.uint8) for _ in range(2))
+    R = lambda n: np.full(n, 4, np.uint8)  # noqa: E731
+    seqs = [(X, np.concatenate([X, R(sep), X])),
+            (np.concatenate([X, R(sep), X]), X),
+            (np.concatenate([X, R(sep), X]), np.concatenate([X, R(sep), X])),
+            (np.concatenate([Y, R(sep), X]), np.concatenate([X, R(far), Y]))]
+    a = np.full((4, LA), 4, np.uint8)
+    b = np.full((4, LA), 4, np.uint8)
+    for k, (sa, sb) in enumerate(seqs):
+        a[k, :sa.size] = sa
+        b[k, :sb.size] = sb
+    full = np.full(4, LA, np.int32)
+    zero = np.zeros(4, np.int32)
+    return [a, b, full, full.copy(), zero, zero + W // 2, zero.copy()]
+
+
+@pytest.mark.parametrize("W,sep,far", [(1600, 300, 620), (160, 50, 70)])
+def test_swwide_cuda_ties_across_warps(cuda, W, sep, far):
+    """Tied bests in different warps (W 1600: 320 lanes a warp) or threads
+    (W 160: one warp of 5 lanes a thread): the earliest row, then the
+    lowest column, whichever warp holds it, on a band of step 0 and of
+    step 1 (1 << 12, where the copies move across the band)."""
+    x = sw_spread_tie_pairs(np.random.default_rng(W), 1024, W, sep, far)
+    got = _sw_check(x, cuda, 1024, W)
+    assert (got[0] == 80).all() and got[2].tolist() == [40] * 4
+    assert got[3].tolist() == [40, 40, 40, 80 + far]
+    x[6][:] = 1 << 12
+    _sw_check(x, cuda, 1024, W)
+
+
+@pytest.mark.parametrize("W", [1, 33, 100, 288, 1600, 2048, 4096])
+def test_swwide_cuda_block_shapes(cuda, W):
+    """Each block shape of swwide_shape (W 1: one warp of 1 lane a thread;
+    33: 2; 100: 4; 288: 9; 1600: 5 warps of 10; 2048: 8 of 8; 4096: 16 of
+    8) on the DP's edge cases and the live-row rule's, both paths in one
+    call."""
+    from smartdenovo_tpu_torch.ops import overlap_dp
+
+    rng = np.random.default_rng(100 + W)
+    x = [np.concatenate(v) for v in zip(sw_edge_pairs(rng, 16, 1024, W),
+                                        sw_live_pairs(rng, 24, 1024, W))]
+    unit = overlap_dp.unit_steps(*(_t(v) for v in x[2:]), 1024, W)
+    assert 0 < int(unit.sum()) < unit.numel()
+    assert _sw_check(x, cuda, 1024, W)[0].max() > 100
+
+
+def test_swwide_cuda_cyc_shapes(cuda):
+    """`cyc`'s own calls at W 1600 (rc(read) against read, slope 1 << 12
+    from (0, 0): the unit path), at lengths of 100 to 3,000 bp that fill
+    neither a warp's 320 lanes nor the band, palindromes among them."""
+    from smartdenovo_tpu_torch.data.readbank import revcomp_codes
+    from smartdenovo_tpu_torch.ops import overlap_dp
+    from smartdenovo_tpu_torch.pipeline.aln_tools import local_chunks, local_inputs
+
+    rng = np.random.default_rng(110)
+    reads = []
+    for k, n in enumerate([100, 150, 319, 321, 640, 799, 801, 1599, 1601, 2000,
+                           2500, 3000]):
+        s = rng.integers(0, 4, n).astype(np.uint8)
+        if k % 3 == 0:   # a palindrome at 3% substitutions
+            s = np.concatenate([s[:n // 2], revcomp_codes(s[:n - n // 2])])
+            sub = rng.random(n) < 0.03
+            s[sub] = (s[sub] + 1) % 4
+        reads.append(s)
+    pairs = [(revcomp_codes(s), s) for s in reads]
+    best = []
+    for idx, LA in local_chunks(pairs):
+        x = [v.numpy() for v in local_inputs([pairs[k] for k in idx], LA, "cpu")]
+        assert overlap_dp.unit_steps(*(_t(v) for v in x[2:]), LA, 1600).all()
+        best += list(_sw_check(x, cuda, LA, 1600)[0])
+    assert max(best) >= 400
+
+
+def test_swwide_cuda_mixed_paths(cuda):
+    """One call of pairs on the unit path (slopes 0 to 1 << 12) and on the
+    shared-memory path (slopes past 1 << 12, negative ones), at W 1600 and
+    W 100."""
+    from smartdenovo_tpu_torch.ops import overlap_dp
+
+    rng = np.random.default_rng(120)
+    x = sw_pairs(rng, 48, 1024)
+    x[6][:] = rng.choice([0, 1, 2048, 4095, 4096, 4097, 6000, 8192, 3 << 12,
+                          -4096], 48)
+    x[6][:2] = [4096, 8192]
+    for W in (1600, 100):
+        unit = overlap_dp.unit_steps(*(_t(v) for v in x[2:]), 1024, W)
+        assert 10 < int(unit.sum()) < 38
+        assert (_sw_check(x, cuda, 1024, W)[0] > 0).sum() > 10
+
+
+def test_swwide_cuda_raises_outside_its_scores(cuda):
+    """swwide's scan keys hold scores under 2^24 and |gap| <= 4096; a call
+    outside that raises."""
+    from smartdenovo_tpu_torch.ops import overlap_dp
+
+    t = [_t(v).to(cuda) for v in sw_pairs(np.random.default_rng(2), 2, 256)]
+    for kw in (dict(gap=-5000), dict(match=1 << 17), dict(gap=100)):
+        with pytest.raises(ValueError):
+            overlap_dp.banded_local_dp(*t, LA=256, W=1600, **kw)
+
+
 def test_swwide_cuda_one_pair_and_many(cuda):
     """B 1, and 300 pairs of mixed lengths (at most one a block at W 1600;
     test_swwide_cuda_more_pairs_than_blocks makes the blocks loop)."""

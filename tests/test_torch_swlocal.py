@@ -169,6 +169,87 @@ def test_live_rows_whole_range_outside_the_monotone_case():
     assert i0.dtype == i1.dtype == torch.int32
 
 
+def _odd_head_pairs(rng, W, LA=256):
+    """sw_pairs whose band start sits at -(W-2) (only column 1 in the band)
+    in every row (slope 0) or from some row on (slope 1 << 12), with a and
+    b of one code so that column 1 scores, beside pairs one column further
+    left (every row dead) and random pairs."""
+    x = sw_pairs(rng, 12, LA)
+    a, b, alen, blen, tb, qb, sl = x
+    edge = 2 - W + W // 2   # qb whose row starts at -(W-2) at slope 0
+    for k, (t, q, s) in enumerate([(0, edge, 0), (0, edge - 1, 0),
+                                   (LA // 4, edge - 1, 1 << 12),
+                                   (LA // 3, edge - 5, 1 << 12)]):
+        a[k], b[k], alen[k], blen[k] = 1, 1, LA, LA
+        tb[k], qb[k], sl[k] = t, q, s
+    return x
+
+
+@pytest.mark.parametrize("W", [1, 33, 1599])
+def test_live_rows_head_at_odd_widths(W):
+    """At an odd W the first live row is the first whose band start is
+    -(W-2) or more (W // 2 is not W / 2 there): _trim_check on bands that
+    reach column 1 alone, which scores 2 from row 1 where the band holds
+    its diagonal (W > 1)."""
+    LA = 256
+    x = _odd_head_pairs(np.random.default_rng(W), W, LA)
+    full, n = _trim_check(x, LA, W)
+    assert n[0] == LA and n[1] == 0 and 0 < n[2] < LA
+    assert full[0][0] == (2 if W > 1 else 0) and full[0][1] == 0
+
+
+def _band_steps_ok(x, LA, W):
+    """Per pair: every live row's band start (band_bases) moves 0 or 1
+    column from the row before."""
+    t = [torch.from_numpy(v) for v in x[2:]]
+    i0, i1 = (v.numpy() for v in todp.live_rows(*t, LA, W))
+    steps = np.diff(todp.band_bases(*t, LA, W).numpy().astype(np.int64), axis=1)
+    return np.array([i0[k] > i1[k] or bool(np.isin(
+        steps[k, i0[k] - 1:i1[k]], [0, 1]).all()) for k in range(len(i0))])
+
+
+@pytest.mark.parametrize("W", [96, 1600, 1601])
+def test_unit_steps_flag_matches_band_steps(W):
+    """The pairs unit_steps flags (csrc/swwide.cu's register path) move 0
+    or 1 column every live row: sw_live_pairs' cases (slope 0 inside the
+    columns and pinned at either end, 1 << 12 with dead heads and tails
+    pinned at blen, negative slopes, wrapping bands) and random slopes
+    around 1 << 12; the monotone slopes from 0 to 1 << 12 are flagged and
+    the others are not."""
+    LA = 1024
+    rng = np.random.default_rng(W)
+    x = sw_live_pairs(rng, 40, LA, W)
+    x[6][24:32] = [0, 1, 4095, 4096, 4097, 8192, -1, 1 << 20]
+    unit = todp.unit_steps(*(torch.from_numpy(v) for v in x[2:]), LA,
+                           W).numpy()
+    assert _band_steps_ok(x, LA, W)[unit].all()
+    assert unit[[0, 1, 2, 8, 9, 12, 15, 22, 23, 24, 25, 26, 27]].all()
+    assert not unit[[3, 4, 5, 6, 7, 13, 14, 16, 18, 20, 21, 28, 29, 30,
+                     31]].any()
+
+
+def test_swwide_shape_covers_every_width():
+    """swwide_shape's block holds every W from 1 to SWWIDE_MAX_W with no
+    lane missing and no warp wholly dead, in at most SWWIDE_MAX_WARPS warps
+    (fewer where the kernel's launch bounds say so) of at most SWWIDE_MAX_P
+    lanes a thread."""
+    shapes = {}
+    for W in range(1, todp.SWWIDE_MAX_W + 1):
+        P, warps = todp.swwide_shape(W)
+        assert 1 <= P <= todp.SWWIDE_MAX_P
+        assert 1 <= warps <= todp.SWWIDE_WARP_CAPS.get(
+            P, todp.SWWIDE_MAX_WARPS)
+        assert 32 * P * (warps - 1) < W <= 32 * P * warps
+        shapes[W] = (P, warps)
+    assert shapes[1600] == (10, 5)     # wtcyc: 5 x 32 x 10, none dead
+    assert shapes[4096] == (8, 16) and shapes[1] == (1, 1)
+    # never more dead lanes than a block of 256 threads of ceil(W / 256)
+    # lanes each, and under a third of them on average
+    dead = np.array([32 * P * w - W for W, (P, w) in shapes.items()])
+    old = np.array([-W % 256 for W in shapes])
+    assert (dead <= old).all() and dead.mean() < old.mean() / 3
+
+
 def test_longest_first_is_a_stable_permutation():
     rng = np.random.default_rng(11)
     i0 = torch.from_numpy(rng.integers(0, 40, 500).astype(np.int32))

@@ -265,6 +265,34 @@ def test_cyc_inverted_repeat_reaches_fold_tests():
     assert qb > qe
 
 
+def test_cyc_calls_take_swwide_unit_path(inputs):
+    """Every banded_local_dp call of `cyc` (both DPs: rc(read) against
+    read, and the two reversed) bands every pair with slope 1 << 12 from
+    (0, 0), so unit_steps flags every pair and csrc/swwide.cu keeps all
+    their rows in registers: the test reads and lengths from 100 to 16,384
+    over every length tier."""
+    from smartdenovo_tpu_torch.data.readbank import \
+        revcomp_codes as t_revcomp
+    from smartdenovo_tpu_torch.ops.overlap_dp import unit_steps
+    from smartdenovo_tpu_torch.pipeline.aln_tools import (local_chunks,
+                                                          local_inputs)
+
+    rng = np.random.default_rng(12)
+    reads = [s for _, s in cyc_recs(rng)] + [
+        rng.integers(0, 4, n).astype(np.uint8)
+        for n in (100, 257, 1000, 2049, 3000, 8193, 16384)]
+    rcs = [t_revcomp(s) for s in reads]
+    for pairs in ([(rc, s) for rc, s in zip(rcs, reads)],
+                  [(rc[::-1].copy(), s[::-1].copy())
+                   for rc, s in zip(rcs, reads)]):
+        tiers = 0
+        for idx, LA in local_chunks(pairs):
+            x = local_inputs([pairs[k] for k in idx], LA, "cpu")
+            assert unit_steps(*x[2:], LA, 1600).all()
+            tiers += 1
+        assert tiers >= 6
+
+
 def test_dif_variants(inputs):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
