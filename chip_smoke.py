@@ -4,7 +4,9 @@
     python3 chip_smoke.py [--workdir DIR]
     python3 chip_smoke.py --only swlocal     # device, build, phase 3's swlocal
     python3 chip_smoke.py --only swwide      # device, build, phase 3's swwide
+    python3 chip_smoke.py --only nwglobal    # device, build, phase 3's nwglobal
     python3 chip_smoke.py --only partitioned # device, build, phase 10
+    python3 chip_smoke.py --only vtab        # device, build, phase 11
 
 Phases, each printing its lines; any failure raises and the script exits
 non-zero:
@@ -39,7 +41,11 @@ non-zero:
             to its plain version, its bound over the live cells, and a
             small batch of wide band steps at W 1600 (its shared-memory
             path) held equal too; its block shape and the time of each
-            call and of the live-row plan are printed
+            call and of the live-row plan are printed; the global NW DP
+            (nwglobal) on 2,048 pairs of 384-512 bp windows at 13%
+            divergence, L 512, timed and held equal to its plain version
+            (scores and every byte of the direction plane), its bound the
+            larger of the plane's bytes and the live cells' operations
 4. join     the overlapper with the sort-join matcher on a deep 25 kb
             simulation, on cuda and on cpu: the overlap lists must be
             equal record for record, and K2 and K3 must have launched
@@ -131,10 +137,28 @@ non-zero:
             (d) graft_entry.entry()'s forward on cuda and on cpu: its 8
                 outputs equal
 
-The last lines are one JSON object of kernel results (all nine kernels,
+11. vtab     the vtab z-mer matcher and the global NW DP on cuda:
+            (a) overlap_dmo(matcher="vtab") through the API at the dmo
+                defaults and --batch-q 64 on phase 5's E. coli reads, which
+                must raise at the 2^25 z-mer index width as the JAX
+                package does, then on the longest prefix of the reads
+                whose index stays under it (a depth cut), beside
+                matcher="auto": wall, stage split, the cut's reads, bases
+                and index width, K1 launches (> 0), peak device memory,
+                and the pair-set Jaccard against auto (>= 0.99)
+            (b) the vtab on cuda and on cpu, dm engine on the 30 kb test
+                bank and sw engine on the SW tests' 8 kb bank: equal
+            (c) tests/test_dagcns.py's consensus loop through
+                batch_global_align at L 2,048 (a 2,000 bp truth, 24 reads
+                at 10% error, three iterations): the first iteration equal
+                to the plain version on the cpu, the consensus identity
+                above 0.97 and above the backbone's
+
+The last lines are one JSON object of kernel results (all ten kernels,
 each launched on the main path: K1-K3 in phase 5, segdp in 6 (c), the
-whole-read DPs in 7 (c) and (d), swlocal in 8 (a), swwide in 9 (a)), the
-card's name and power limit, and {"ok": true, "device": {...}}.
+whole-read DPs in 7 (c) and (d), swlocal in 8 (a), swwide in 9 (a),
+nwglobal in 11 (c)), the card's name and power limit, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -428,6 +452,7 @@ def phase_kernels(dev, fa):
     results.update(phase_wholeread_kernels(dev))
     results["swlocal"] = phase_swlocal(dev)
     results["swwide"] = phase_swwide(dev, fa)
+    results["nwglobal"] = phase_nwglobal(dev)
     return results
 
 
@@ -912,6 +937,78 @@ def phase_swwide(dev, fa):
                 live_rows=int(live.sum()), longest_live=int(live.max()),
                 ms_in_a_row=ms_row, plan_ms=plan_ms, block=[warps, P],
                 wide_step_ms=ms_w)
+
+
+NW_B, NW_L = 2048, 512     # phase 3's nwglobal batch
+
+
+def _nw_batch(seed, B=NW_B, L=NW_L):
+    """B pairs of windows of 384-512 bp: a random window and a copy of it
+    mutated at 13% (utils/simulate.py mutate_read), cut to L: the inputs of
+    batch_global_align (a, b [B, L] u8, alen, blen [B] i32)."""
+    import numpy as np
+
+    from smartdenovo_tpu_torch.utils.simulate import mutate_read
+
+    rng = np.random.default_rng(seed)
+    a = np.full((B, L), 4, np.uint8)
+    b = np.full((B, L), 4, np.uint8)
+    alen = np.zeros(B, np.int32)
+    blen = np.zeros(B, np.int32)
+    for k in range(B):
+        n = int(rng.integers(384, 513))
+        src = rng.integers(0, 4, n).astype(np.uint8)
+        mut = mutate_read(rng, src, 0.13)[:L]
+        a[k, :n] = src
+        b[k, :len(mut)] = mut
+        alen[k], blen[k] = n, len(mut)
+    return a, b, alen, blen
+
+
+def phase_nwglobal(dev):
+    """nwglobal (csrc/nwglobal.cu) on NW_B pairs of 384-512 bp windows at
+    13% divergence, L NW_L: scores and every byte of the direction plane
+    held equal to the plain version on the same inputs (tolerance 0),
+    timed (median of 10 calls, each alone, and the mean of 10 in a row)
+    beside the plain version (median of 3).  The bound is the larger of
+    the plane's and the inputs' bytes over HBM and the live cells,
+    sum (alen + 1)(blen + 1), at SW_OPS_PER_CELL int32 operations over the
+    int32 rate.  No PyTorch call computes this DP (library: none)."""
+    import torch
+
+    from smartdenovo_tpu_torch.kernels import _build
+    from smartdenovo_tpu_torch.ops import swdp
+
+    t = [torch.from_numpy(x).to(dev) for x in _nw_batch(91)]
+    B, L = t[0].shape
+    n0 = _build.LAUNCHES["nwglobal"]
+    got = swdp.batch_global_align(*t, max_len=L)
+    exp = swdp.batch_global_align_plain(*t, max_len=L)
+    torch.cuda.synchronize()
+    if _build.LAUNCHES["nwglobal"] != n0 + 1:
+        raise AssertionError("batch_global_align did not launch nwglobal")
+    if not torch.equal(got[1], exp[1]):
+        raise AssertionError("nwglobal's direction plane differs from its "
+                             "plain version")
+    err = max_abs(got[0], exp[0])
+    if err:
+        raise AssertionError(f"nwglobal's scores differ from its plain "
+                             f"version (max abs err {err})")
+    del got, exp
+    call = lambda: swdp.batch_global_align(*t, max_len=L)  # noqa: E731
+    ms, rms = cuda_ms(call), cuda_ms(call, in_a_row=True)
+    pms = cuda_ms(lambda: swdp.batch_global_align_plain(*t, max_len=L),
+                  reps=3)
+    cells = int(((t[2].to(torch.int64) + 1) * (t[3].to(torch.int64) + 1))
+                .sum())
+    plane = B * (2 * L + 1) * (L + 1)
+    tm = timing(ms, pms, plane + 2 * B * L + 12 * B, SW_OPS_PER_CELL * cells)
+    say(f"kernel nwglobal B={B} L={L} ({cells} live cells, plane {plane} "
+        f"bytes): {ms:.3f} ms ({rms:.3f} in a row), plain {pms:.1f} ms, "
+        f"bound {tm['bound_ms']:.3f} ms ({tm['bound_by']}), share "
+        f"{tm['share']:.4f}; equal (scores and plane)")
+    return dict(tm, max_abs_err=err, shape=f"B {B}, L {L}", cells=cells,
+                ms_in_a_row=rms)
 
 
 def _plain_wr(kind, args, LA, W):
@@ -2037,21 +2134,27 @@ def _n_reads(path):
         return sum(1 for line in fh if line.startswith(">"))
 
 
+def bank30k():
+    """The 30 kb / 10x bank of tests/test_torch_overlap_asm.py."""
+    import numpy as np
+
+    from smartdenovo_tpu_torch.data.readbank import ReadBank
+    from smartdenovo_tpu_torch.utils.simulate import random_genome, simulate_reads
+
+    rng = np.random.default_rng(11)
+    return ReadBank(*simulate_reads(random_genome(rng, 30000), coverage=10,
+                                    mean_len=5000, err=0.13, seed=12))
+
+
 def gparts_against_cpu(dev):
     """-G 2 on the 30 kb bank of tests/test_torch_overlap_asm.py, on `dev`
     and on the CPU: equal records."""
     import dataclasses
 
-    import numpy as np
-
-    from smartdenovo_tpu_torch.data.readbank import ReadBank
     from smartdenovo_tpu_torch.kernels import _build
     from smartdenovo_tpu_torch.pipeline.zmo import ZmoParams, overlap_dmo
-    from smartdenovo_tpu_torch.utils.simulate import random_genome, simulate_reads
 
-    rng = np.random.default_rng(11)
-    rb = ReadBank(*simulate_reads(random_genome(rng, 30000), coverage=10,
-                                  mean_len=5000, err=0.13, seed=12))
+    rb = bank30k()
     p = ZmoParams.dmo(batch_q=8, ncand=64, gparts=2)
     out, walls = {}, {}
     n0 = _build.LAUNCHES["sseg"]
@@ -2138,16 +2241,289 @@ def entry_against_cpu(dev):
         raise AssertionError("graft_entry forward differs on cuda and cpu")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the vtab matcher and the global NW DP
+# ---------------------------------------------------------------------------
+
+VTAB_P = 1 << 25     # the vt start packing's limit on the z-mer index width
+NW_DAG_L = 2048      # phase 11 (c)'s window width
+
+
+def phase_vtab(fa, dev="cuda", profile=False):
+    """(a) overlap_dmo(matcher="vtab") on the E. coli reads (it must raise
+    at the 2^25 index width) and on their longest prefix under it, beside
+    matcher="auto", and with `profile` the vtab run once more under
+    torch.profiler (~90 s with the profiler's own work, so only `--only
+    vtab` asks for it); (b) the vtab on `dev` and on the CPU, dm and sw
+    engines; (c) the consensus loop of tests/test_dagcns.py through
+    batch_global_align at L NW_DAG_L.  Returns the launches of (a)'s vtab
+    run on the cut and of (c), each read with the counts set to 0 just
+    before it."""
+    t0 = time.perf_counter()
+    launches = vtab_ecoli(fa, dev, profile)
+    t1 = time.perf_counter()
+    vtab_against_cpu(dev)
+    t2 = time.perf_counter()
+    launches["nwglobal"] = nw_dag_loop(dev)
+    say(f"vtab phase times (s): E. coli {t1 - t0:.1f}, cuda vs cpu "
+        f"{t2 - t1:.1f}, DAG loop {time.perf_counter() - t2:.1f}")
+    return launches
+
+
+def _index_width(bases, n):
+    """Tz, the z-mer index width overlap_dmo builds for n reads of this
+    many bases (ops/flatseeds.py: the padded flat bank plus RM_BLK slots a
+    read)."""
+    from smartdenovo_tpu_torch.ops.flatseeds import RM_BLK, pad_pow2
+
+    return pad_pow2(int(bases) + 1) + pad_pow2(n, lo=1 << 8) * RM_BLK
+
+
+def _overlap_api(rb, matcher, dev):
+    """overlap_dmo at the dmo defaults and --batch-q 64 with its log
+    captured: (records, log, wall s, peak device bytes, launches, the
+    assertion it raised or None)."""
+    import torch
+
+    from smartdenovo_tpu_torch.kernels import _build
+    from smartdenovo_tpu_torch.pipeline.zmo import ZmoParams, overlap_dmo
+
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    recs, err = [], None
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(_Tee(sys.stderr, buf)):
+        try:
+            recs = overlap_dmo(rb, ZmoParams.dmo(batch_q=64, matcher=matcher),
+                               device=dev)
+        except AssertionError as e:
+            err = str(e)
+    torch.cuda.synchronize()
+    return (recs, buf.getvalue(), time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated(), dict(_build.LAUNCHES), err)
+
+
+def vtab_ecoli(fa, dev, profile=False):
+    """(a): the whole E. coli bank is past the vt packing (Tz >= 2^25) and
+    must raise, as the JAX package does; the longest prefix of the reads
+    (FASTA order, a depth cut) whose Tz stays under 2^25 runs with vtab and
+    with auto: wall, stage split, redispatches, K1 launches (> 0), peak
+    device memory, and the pair-set Jaccard of vtab against auto (bar
+    0.99, tests/test_overlap_dmo.py)."""
+    import numpy as np
+
+    from smartdenovo_tpu_torch.data.readbank import ReadBank, seq_to_codes
+    from smartdenovo_tpu_torch.io.fasta import read_seqs
+
+    names, seqs = [], []
+    for tag, _desc, seq in read_seqs([fa]):
+        names.append(tag)
+        seqs.append(seq_to_codes(seq))
+    cum = np.cumsum([len(x) for x in seqs])
+    tz_all = _index_width(cum[-1], len(seqs))
+    recs, log, wall, peak, launches, err = _overlap_api(
+        ReadBank(names, seqs), "vtab", dev)
+    if err is None or "2^25" not in err:
+        raise AssertionError(f"vtab on all {len(seqs)} E. coli reads (Tz "
+                             f"{tz_all}) did not raise at 2^25: {err}")
+    say(f"vtab on all {len(seqs)} E. coli reads ({cum[-1]} bases, Tz "
+        f"{tz_all}): raised after {wall:.1f} s as the JAX package does: "
+        f"{err}")
+    k = len(seqs)
+    while k and _index_width(cum[k - 1], k) >= VTAB_P:
+        k -= 1
+    rb = ReadBank(names[:k], seqs[:k])
+    pairs, got = {}, {}
+    for matcher in ("vtab", "auto"):
+        recs, log, wall, peak, launches, err = _overlap_api(rb, matcher, dev)
+        if err is not None:
+            raise AssertionError(f"{matcher} on the cut raised: {err}")
+        stages = {m[0]: float(m[1])
+                  for m in re.findall(r"stage (\w+): ([0-9.]+)s", log)}
+        nred = len(re.findall(r"budget overflow batch", log))
+        pairs[matcher] = {(min(o.rid1, o.rid2), max(o.rid1, o.rid2))
+                          for o in recs}
+        got[matcher] = launches
+        say(f"{matcher} on the E. coli cut ({k} reads, "
+            f"{cum[k - 1]} bases, Tz {_index_width(cum[k - 1], k)}): "
+            f"wall {wall:.1f} s, stages {json.dumps(stages)}, redispatches "
+            f"{nred}, {len(recs)} overlaps, launches {json.dumps(launches)}, "
+            f"peak device memory {peak} bytes")
+    if profile:
+        vtab_profile(rb, dev)
+    a, v = pairs["auto"], pairs["vtab"]
+    jac = len(a & v) / max(1, len(a | v))
+    say(f"vtab against auto on the cut: pairs {len(v)} vs {len(a)}, "
+        f"Jaccard {jac:.4f} (bar 0.99)")
+    if jac < 0.99 or not v:
+        raise AssertionError(f"vtab on the E. coli cut: Jaccard {jac:.4f}")
+    if dev != "cpu" and got["vtab"]["sseg"] == 0:
+        raise AssertionError("the vtab run did not launch K1")
+    return {"sseg": got["vtab"]["sseg"]}
+
+
+def vtab_profile(rb, dev, top=8):
+    """The vtab run on the cut once more under torch.profiler: the device
+    time summed over its kernels beside the wall (the card's busy share)
+    and the kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from smartdenovo_tpu_torch.pipeline.zmo import ZmoParams, overlap_dmo
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        overlap_dmo(rb, ZmoParams.dmo(batch_q=64, matcher="vtab"),
+                    progress=False, device=dev)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    # the device activities themselves (kernels, copies, sets): an aten
+    # op's own row repeats the device time of the kernels it launched
+    ev = [e for e in prof.key_averages()
+          if dev_us(e) > 0 and not e.key.startswith("aten::")]
+    busy = sum(dev_us(e) for e in ev) / 1e6
+    ev.sort(key=dev_us, reverse=True)
+    say(f"vtab on the cut under torch.profiler: device time {busy:.3f} s in "
+        f"a wall of {wall:.1f} s (busy share {busy / wall:.3f}); most device "
+        f"time: " + "; ".join(f"{e.key[:70]} {dev_us(e) / 1e3:.1f} ms "
+                              f"({e.count} calls)" for e in ev[:top]))
+
+
+def vtab_against_cpu(dev):
+    """(b): matcher="vtab" on `dev` and on the CPU, equal records: the dm
+    engine on the 30 kb bank of tests/test_torch_overlap_asm.py, the sw
+    engine on the SW tests' 8 kb bank (tests/test_torch_cuda.py sw_bank,
+    SW_PARAMS)."""
+    import dataclasses
+
+    import numpy as np
+
+    from smartdenovo_tpu_torch.data.readbank import ReadBank
+    from smartdenovo_tpu_torch.kernels import _build
+    from smartdenovo_tpu_torch.pipeline.zmo import ZmoParams, overlap_dmo
+    from smartdenovo_tpu_torch.utils.simulate import random_genome, simulate_reads
+
+    dm = bank30k()
+    rng = np.random.default_rng(7)
+    names, seqs = simulate_reads(random_genome(rng, 8000), coverage=6,
+                                 mean_len=1200, err=0.13, seed=8, min_len=600)
+    sw = ReadBank(names, [x[:2000] for x in seqs])
+    for engine, rb, p in (
+            ("dm", dm, ZmoParams.dmo(batch_q=8, ncand=64, matcher="vtab")),
+            ("sw", sw, ZmoParams.zmo(matcher="vtab", batch_q=4, ncand=16,
+                                     align_cap=8, band_w=64))):
+        out, walls = {}, {}
+        _build.reset_launches()
+        for d in (dev, "cpu"):
+            t0 = time.perf_counter()
+            out[d] = [dataclasses.astuple(o)
+                      for o in overlap_dmo(rb, p, progress=False, device=d)]
+            walls[d] = time.perf_counter() - t0
+            if d == dev:
+                launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        if out[dev] != out["cpu"] or not out[dev]:
+            raise AssertionError(f"vtab -e {engine}: cuda and cpu differ, or "
+                                 f"found nothing")
+        if dev != "cpu" and (not launches.get("sseg") or (
+                engine == "sw" and not launches.get("swlocal"))):
+            raise AssertionError(f"vtab -e {engine} launched {launches}")
+        say(f"vtab -e {engine} on {len(rb)} reads: {len(out[dev])} records "
+            f"equal on {dev} and cpu; {dev} {walls[dev]:.1f} s (launches "
+            f"{json.dumps(launches)}), cpu {walls['cpu']:.1f} s")
+
+
+def nw_dag_loop(dev):
+    """(c): tests/test_dagcns.py's consensus loop at a larger size: a
+    2,000 bp truth, a backbone at 8% error, 24 reads at 10%, windows of
+    NW_DAG_L (reads cut there), three iterations of batch_global_align on
+    `dev`, the host traceback and the native DAG.  The first iteration's
+    scores and plane must equal the plain version's on the CPU; the
+    consensus identity must pass 0.97 and the backbone's.  Returns the
+    nwglobal launches of the loop."""
+    import numpy as np
+    import torch
+
+    from smartdenovo_tpu_torch.data.readbank import codes_to_seq
+    from smartdenovo_tpu_torch.kernels import _build
+    from smartdenovo_tpu_torch.ops import swdp
+    from smartdenovo_tpu_torch.utils.native import DagCns
+    from smartdenovo_tpu_torch.utils.simulate import mutate_read
+
+    L = NW_DAG_L
+    rng = np.random.default_rng(44)
+    truth = rng.integers(0, 4, 2000).astype(np.uint8)
+    backbone = mutate_read(rng, truth, 0.08)[:L]
+    reads = [mutate_read(rng, truth, 0.10)[:L] for _ in range(24)]
+    B = len(reads)
+    cns = backbone
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    kernel_s = plain_s = 0.0
+    for it in range(3):
+        a = np.full((B, L), 4, np.uint8)
+        b = np.full((B, L), 4, np.uint8)
+        alen = np.full(B, len(cns), np.int32)
+        blen = np.array([len(r) for r in reads], np.int32)
+        a[:, :len(cns)] = cns
+        for i, r in enumerate(reads):
+            b[i, :len(r)] = r
+        host = [torch.from_numpy(x) for x in (a, b, alen, blen)]
+        tk = time.perf_counter()
+        score, dirs = swdp.batch_global_align(*(x.to(dev) for x in host),
+                                              max_len=L)
+        dirs = dirs.cpu()
+        kernel_s += time.perf_counter() - tk
+        if it == 0:
+            tp = time.perf_counter()
+            ps, pd = swdp.batch_global_align_plain(*host, max_len=L)
+            plain_s = time.perf_counter() - tp
+            if not (torch.equal(score.cpu(), ps) and torch.equal(dirs, pd)):
+                raise AssertionError("nwglobal in the DAG loop differs from "
+                                     "the plain version on the CPU")
+        g = DagCns()
+        g.set_backbone(cns)
+        for i, (ops, counts) in enumerate(
+                swdp.traceback_batch(dirs.numpy(), alen, blen)):
+            a0, a1 = swdp.align_strings(a[i], b[i], ops, counts)
+            g.add_alignment(0, int(alen[i]), a0, a1)
+        g.merge_nodes()
+        cns, _mp, _sc = g.consensus()
+        if len(cns) > L:
+            raise AssertionError(f"consensus of {len(cns)} bp past L {L}")
+    launches = _build.LAUNCHES["nwglobal"]
+    ident = identity(codes_to_seq(cns), codes_to_seq(truth))
+    ident_bb = identity(codes_to_seq(backbone), codes_to_seq(truth))
+    say(f"DAG loop through nwglobal (B {B}, L {L}, 3 iterations): "
+        f"{time.perf_counter() - t0:.1f} s, of it the align calls with their "
+        f"fetch {kernel_s:.2f} s; the plain version on the cpu (iteration "
+        f"1) {plain_s:.1f} s, equal; consensus {len(cns)} bp, identity "
+        f"{ident:.4f} (backbone {ident_bb:.4f}; bars 0.97 and the "
+        f"backbone's); nwglobal launches {launches}")
+    if not (ident > 0.97 and ident > ident_bb) or (dev != "cpu"
+                                                   and launches != 3):
+        raise AssertionError(f"DAG loop: identity {ident:.4f}, backbone "
+                             f"{ident_bb:.4f}, launches {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workdir", default=None,
                     help="keep the work files (E. coli reads and stage files) "
                          "here instead of a temporary directory")
-    ap.add_argument("--only", choices=["swlocal", "swwide", "partitioned"],
+    ap.add_argument("--only", choices=["swlocal", "swwide", "nwglobal",
+                                       "partitioned", "vtab"],
                     default=None,
                     help="run only this kernel's phase 3 check and timing, "
-                         "or phase 10 (no main path, no closing result "
-                         "line)")
+                         "or phase 10 (partitioned) or 11 (vtab) (no main "
+                         "path, no closing result line)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     try:
@@ -2177,15 +2553,19 @@ def main() -> int:
         tmp = args.workdir or stack.enter_context(tempfile.TemporaryDirectory())
         os.makedirs(tmp, exist_ok=True)
         fa = os.path.join(tmp, "ecoli_reads.fa")
-        if args.only != "swlocal":
+        if args.only not in ("swlocal", "nwglobal"):
             ecoli_reads(fa)
-        if args.only == "partitioned":
-            phase_partitioned(tmp)
+        if args.only in ("partitioned", "vtab"):
+            if args.only == "partitioned":
+                phase_partitioned(tmp)
+            else:
+                phase_vtab(fa, profile=True)
             say(gpu_line())
             return 0
         if args.only:
-            res = (phase_swlocal(dev) if args.only == "swlocal"
-                   else phase_swwide(dev, fa))
+            res = {"swlocal": lambda: phase_swlocal(dev),
+                   "swwide": lambda: phase_swwide(dev, fa),
+                   "nwglobal": lambda: phase_nwglobal(dev)}[args.only]()
             say(json.dumps({args.only: res}))
             say(gpu_line())
             return 0
@@ -2197,6 +2577,7 @@ def main() -> int:
         launches["swlocal"] = phase_zmo(tmp)["swlocal"]
         launches["swwide"] = phase_tools(tmp)["swwide"]
         phase_partitioned(tmp)
+        launches["nwglobal"] = phase_vtab(fa)["nwglobal"]
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -2227,7 +2608,10 @@ def main() -> int:
            "swwide": ("smartdenovo_tpu_torch/csrc/swwide.cu",
                       "smartdenovo_tpu/ops/overlap_dp.py:48 (jax.jit "
                       "lax.scan, not Pallas), W outside swlocal's set; "
-                      "pipeline/aln_tools.py:70 wtcyc W 1600")}
+                      "pipeline/aln_tools.py:70 wtcyc W 1600"),
+           "nwglobal": ("smartdenovo_tpu_torch/csrc/nwglobal.cu",
+                        "smartdenovo_tpu/ops/swdp.py:32 (jax.jit lax.scan "
+                        "at :88, not Pallas)")}
     kernels = [dict(name=k, route="cuda", source=src[k][0],
                     replaces=src[k][1], launches=launches[k], **kres[k])
                for k in src]

@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {"sseg": 0, "jpost": 0, "pexpand": 0, "segdp": 0, "banded": 0,
-            "refine": 0, "refine5q": 0, "swlocal": 0, "swwide": 0}
+            "refine": 0, "refine5q": 0, "swlocal": 0, "swwide": 0,
+            "nwglobal": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -80,6 +81,9 @@ _SIGNATURES = {
     # after i1 (the pairs whose band moves 0 or 1 column a row) and the
     # block shape P, warps after W
     "swwide_dp": [_P] * 11 + [_I32] * 9 + [_P] * 2,
+    # a, b, alen, blen, B, L, match, mismatch, gap, in_smem, scratch,
+    # score, dirs, stream
+    "nwglobal_align": [_P] * 4 + [_I32] * 6 + [_P] * 4,
 }
 _RESTYPES = {"sseg_scratch_ints": _I64, "jpost_scratch_ints": _I64,
              "pexpand_scratch_ints": _I64}   # the others return an int

@@ -253,6 +253,101 @@ def extract_zmer_pairs_join(qz, qdir, qoff, qspan, qvalid, cands_sorted,
                      expand_total=total1)
 
 
+def extract_zmer_pairs_vtab(qrids, cands_sorted, rm_zsd, rm_pk, rm_start,
+                            read_lens, rm_cnt=None, *, expand_budget: int,
+                            pair_budget: int, qm_budget: int, kvar: int = 2,
+                            zbits: int = 20,
+                            max_per_read: int = 16) -> PairBatch:
+    """Sort-free per-pair z-mer intersection through a direct-addressed
+    (query, zmer) table, the reference's per-read zmer filter
+    (hzm_aln.h:114,152,206):
+
+    1. vt build: each query's postings are one (rd, zmer)-sorted slice, so
+       its zmer runs are contiguous; each run start stores
+       (global start index + 1) << 6 | min(run length, 63) at
+       vt[(q << zbits) | zmer];
+    2. candidate expansion: every posting of every candidate slice reads
+       its zsd and one vt entry; zmers the query lacks die there;
+    3. the matches expand into the n x m co-occurrences, the query
+       occurrences straight from the vt start index.
+
+    qrids [Q] read ids, cands_sorted [Q, A] (pad INT32_MAX), the read-major
+    index (rm_zsd, rm_pk [P], rm_start [R+1], rm_cnt [R] live postings).
+    Requires P < 2^25 (the start index packs into 25 bits) and
+    max_per_read <= 64 (the run length into 6)."""
+    dev = qrids.device
+    Q = qrids.shape[0]
+    A = cands_sorted.shape[1]
+    R = read_lens.shape[0]
+    P = rm_zsd.shape[0]
+    assert P < (1 << 25), "vt start packing needs P < 2^25; shard the index (-G)"
+    assert max_per_read <= 64, "vt count packing uses 6 bits"
+    BIGP = Q * A * 2
+    VT = Q << zbits
+
+    # ---- phase 1: direct-addressed query zmer table ----
+    r = qrids.clamp(0, R - 1)
+    qcnt = rm_cnt[r] if rm_cnt is not None else rm_start[r + 1] - rm_start[r]
+    qsrc, qwithin, qalive, qtotal = expand_ranges(qcnt, qm_budget)
+    qidx = (rm_start[r][qsrc] + qwithin).clamp(0, P - 1)
+    qzmer = rm_zsd[qidx] >> 9
+    run_new = qalive & ((qwithin == 0) | (qzmer != shift_right(qzmer, -1))
+                        | (qsrc != shift_right(qsrc, -1)))
+    run_id = cumsum32(run_new) - 1
+    pq = arange32(qm_budget, dev)
+    # S[k] = start of run k in the expanded axis, S[runs] = qtotal: run ids
+    # are distinct at run starts, the other slots go to the dropped junk
+    # slot (the JAX package's S[qm_budget] is read only when every slot
+    # starts a run, and then holds qtotal as here)
+    S = torch.cat([scatter_set(qm_budget, torch.where(run_new, run_id,
+                                                      qm_budget), pq, 0),
+                   _zeros(1, dev)])
+    S[(run_id[-1] + 1).clamp(0, qm_budget).reshape(1).long()] = \
+        qtotal.reshape(1)
+    run_cnt = S[(run_id + 1).clamp(0, qm_budget)] - pq   # valid at run starts
+    # A query's slice is zmer-sorted, so its run starts have distinct
+    # zmers and distinct targets; amax keeps even a repeated target
+    # deterministic on CUDA (every value is > 0).  Dead slots go to entry
+    # VT, zeroed after: the probe of a dead element reads 0 there.
+    vt_idx = torch.where(run_new, (qsrc << zbits) | qzmer, VT).long()
+    vt_val = ((qidx + 1) << 6) | run_cnt.clamp(max=63)
+    vt = torch.zeros(VT + 1, dtype=I32, device=dev)
+    vt.scatter_reduce_(0, vt_idx, vt_val, reduce="amax")
+    vt[VT] = 0
+
+    # ---- phase 2: candidate expansion + table probe ----
+    c = cands_sorted.clamp(0, R - 1)
+    cvalid = (cands_sorted >= 0) & (cands_sorted < R)
+    cstart = torch.where(cvalid, rm_start[c], 0).reshape(-1)
+    clive = rm_cnt[c] if rm_cnt is not None else rm_start[c + 1] - rm_start[c]
+    cnt1 = torch.where(cvalid, clive, 0).reshape(-1)
+    clen_flat = torch.where(cvalid, read_lens[c], 0).reshape(-1).to(I32)
+    src1, within1, alive1, total1 = expand_ranges(cnt1, expand_budget)
+    pidx = (cstart[src1] + within1).clamp(0, P - 1)
+    zsd = torch.where(alive1, rm_zsd[pidx], 0)
+    probe = torch.where(alive1, ((src1 // A) << zbits) | (zsd >> 9), VT)
+    qinfo = vt[probe.clamp(max=VT)]
+    qstart1 = (qinfo >> 6) - 1
+    cnt2 = torch.where(alive1 & (qinfo != 0), qinfo & 63, 0)
+
+    # ---- phase 3: emit n x m co-occurrences ----
+    src2, within2, alive2, total2 = expand_ranges(cnt2, pair_budget)
+    qslot2 = src1[src2].clamp(0, Q * A - 1)
+    qg = rm_pk[(qstart1[src2] + within2).clamp(0, P - 1)]
+    cg = rm_pk[pidx[src2].clamp(0, P - 1)]
+    cln = clen_flat[qslot2]
+    q_span = (qg >> 1) & 0xFF
+    p_off = cg >> 9
+    p_span = (cg >> 1) & 0xFF
+    pairdir = (qg ^ cg) & 1
+    o2 = torch.where(pairdir == 1, cln - (p_off + p_span), p_off)
+    len_ok = alive2 & ((q_span - p_span).abs() <= kvar)
+    pair_id = torch.where(len_ok, qslot2 * 2 + pairdir, BIGP)
+    return PairBatch(pair_id=pair_id, o1l1=qg >> 1, o2l2=(o2 << 8) | p_span,
+                     match_cnt=_zeros(BIGP, dev), total=total2,
+                     expand_total=total1)
+
+
 def extract_zmer_pairs_sweep(qrids, qskip, cands_sorted, rm_zsd, rm_pk, rm_rd,
                              rm_start, read_lens, rm_cnt=None, *,
                              cross_budget: int, occ_budget: int, kvar: int = 2,

@@ -1,8 +1,10 @@
 """Seed hashing, strand bit math and the legacy per-batch seed extraction
 (port of smartdenovo_tpu/ops/seeds.py; wtgbo's rescue aligner, the
 legacy k-mer and z-mer indexes, wtmer and the dot plot use
-`extract_seeds` and `compact_seed_batch`; `np_canonical_kmers`, the numpy
-twin that wtcorr's DBG build uses, is a copy).
+`extract_seeds` and `compact_seed_batch`; the numpy twins are copies:
+`np_canonical_kmers`, which wtcorr's DBG build uses, `extract_seeds_np`,
+the scan loop of wtzmo.c:255-276 that the tests hold the extractor to,
+and `np_jenkins_u32`).
 
 torch has no uint32 arithmetic, so uint32 k-mer codes and hashes are
 carried in int64 tensors holding values in [0, 2^32): every left shift
@@ -147,6 +149,40 @@ def compact_seed_batch(batch, lengths, rids, ksize: int, hz: bool = True,
     return kc, scat(aux), total
 
 
+def extract_seeds_np(seq, ksize: int, hz: bool = True):
+    import numpy as np
+
+    mask = (1 << (2 * ksize)) - 1
+    kmer = 0
+    b = -1
+    hzoff = []
+    out = []
+    i = 0
+    for j, c in enumerate(seq):
+        c = int(c)
+        if hz and c == b:
+            continue
+        b = c
+        i += 1
+        hzoff.append(j)
+        kmer = ((kmer << 2) | c) & mask
+        if i < ksize:
+            continue
+        # revcomp
+        rc = 0
+        t = kmer
+        for _ in range(ksize):
+            rc = (rc << 2) | (3 - (t & 3))
+            t >>= 2
+        if rc == kmer:
+            continue
+        d = 0 if rc > kmer else 1
+        canon = min(kmer, rc)
+        off = hzoff[i - ksize]
+        out.append((canon, d, off, j + 1 - off))
+    return out
+
+
 def np_canonical_kmers(batch, lengths, ksize: int, hz: bool = True):
     """Numpy twin of extract_seeds returning only (codes, valid) — used by
     the host to size expansion budgets exactly without a device sync."""
@@ -186,3 +222,19 @@ def np_canonical_kmers(batch, lengths, ksize: int, hz: bool = True):
     cpos = np.arange(L)[None, :]
     valid = (cpos + ksize <= n_comp[:, None]) & (kmer != rc)
     return canon, valid
+
+
+def np_jenkins_u32(key):
+    """Numpy twin of jenkins_hash_u32."""
+    import numpy as np
+
+    key = key.astype(np.uint32)
+    key = key + (key << np.uint32(12))
+    key ^= key >> np.uint32(22)
+    key = key + (key << np.uint32(4))
+    key ^= key >> np.uint32(9)
+    key = key + (key << np.uint32(10))
+    key ^= key >> np.uint32(2)
+    key = key + (key << np.uint32(7))
+    key ^= key >> np.uint32(12)
+    return key

@@ -39,7 +39,8 @@ from ..ops.banded import (align_strings, banded_align, make_band_centers,
                           traceback_banded)
 from ..ops.candidates import scan_candidates
 from ..ops.dotmatrix import (dot_matrix_align, extract_zmer_pairs_join,
-                             extract_zmer_pairs_sweep)
+                             extract_zmer_pairs_sweep,
+                             extract_zmer_pairs_vtab)
 from ..ops.flatseeds import build_bank_indexes, gather_query_rows, pad_pow2
 from ..ops.seeds import subsample_mask
 from ..ops.zmo_sw import sw_align_batch
@@ -99,7 +100,8 @@ class ZmoParams:
     nb: int = 32
     matcher: str = "auto"     # "auto" = per-chunk pick of sweep vs join by
                               #   exact expansion mass; "sweep"; "join";
-                              #   "vtab" is not ported
+                              #   "vtab" (direct-addressed zmer table; never
+                              #   picked by auto); -G runs the sweep alone
     # SW (zmo) engine
     engine: str = "dm"        # "dm" = dot-matrix (-U), "sw" = banded local DP
     sw_match: int = 2         # -M
@@ -210,8 +212,8 @@ def _pair_core(rids, qlens, csorted, z10, didx, read_lens,
                max_per_read, xvar, yvar, min_block_len, max_overhang,
                deviation_penalty, gap_penalty, matcher="sweep", cx=0,
                pd=None, max_len=1 << 17):
-    """Phase 2 for one batch: z-mer matching (sweep or join) and the
-    dot-matrix chain."""
+    """Phase 2 for one batch: z-mer matching (sweep, vtab or join) and
+    the dot-matrix chain."""
     n = read_lens.shape[0]
     dev = rids.device
     if matcher == "sweep":
@@ -221,6 +223,13 @@ def _pair_core(rids, qlens, csorted, z10, didx, read_lens,
             didx.rm_cnt,
             cross_budget=cx or pb, occ_budget=mb, kvar=kvar, zbits=zbits,
             pair_budget=pb if cx else None,
+        )
+    elif matcher == "vtab":
+        pairs = extract_zmer_pairs_vtab(
+            rids, csorted,
+            didx.rm_zsd, didx.rm_pk, didx.rm_start, read_lens, didx.rm_cnt,
+            expand_budget=mb, pair_budget=pb, qm_budget=qkb, kvar=kvar,
+            zbits=zbits, max_per_read=max_per_read,
         )
     else:
         zk, zoff, zspan, zdir, zvalid = gather_query_rows(z10, rids, Lc)
@@ -319,7 +328,9 @@ def overlap_dmo(rb: ReadBank, params: ZmoParams | None = None,
         raise ValueError(f"unknown engine {p.engine!r}")
     if p.gparts > 1:
         # the JAX package's -G path runs the dm engine whatever the engine
-        # and drops the pair ledgers (ROADMAP queue 3): refuse both
+        # and drops the pair ledgers (ROADMAP queue 3): refuse both.  It
+        # also matches with the row-form sweep whatever `matcher` says
+        # (vtab included), and so does overlap_gparts
         if p.engine == "sw":
             raise NotImplementedError(
                 "-G runs the dot-matrix engine only; -e sw with gparts > 1 "
@@ -332,9 +343,8 @@ def overlap_dmo(rb: ReadBank, params: ZmoParams | None = None,
 
         return overlap_gparts(rb, p, progress=progress, parts=parts,
                               part=part, device=device)
-    if p.matcher not in ("auto", "sweep", "join"):
-        raise NotImplementedError(
-            f"matcher {p.matcher!r} is not ported (ROADMAP: Do not port)")
+    if p.matcher not in ("auto", "sweep", "join", "vtab"):
+        raise ValueError(f"unknown matcher {p.matcher!r}")
     dev = resolve_device(device)
     n = len(rb)
     if n == 0:
@@ -429,7 +439,7 @@ def overlap_dmo(rb: ReadBank, params: ZmoParams | None = None,
                          default=1) + Q, lo=1 << 13)
     qkb_c = pad_pow2(max((int(comp_len[b].sum()) for b in batches),
                          default=1) + Q, lo=1 << 13)
-    if p.matcher == "sweep":
+    if p.matcher in ("vtab", "sweep"):
         qkb = qkb_z
     elif p.matcher == "join":
         qkb = qkb_c
@@ -476,7 +486,7 @@ def overlap_dmo(rb: ReadBank, params: ZmoParams | None = None,
         cross axis vs the join's candidate-posting expansion."""
         if p.matcher == "sweep":
             return sweep_budgets(c0, c0 + sz)
-        if p.matcher == "join":
+        if p.matcher in ("vtab", "join"):
             return pair_budgets(int(sizes[c0: c0 + sz, 0].max()), p.matcher)
         join_need = int(sizes[c0: c0 + sz, 0].max())
         cross_need = max(int(cross[rids_all[bi]].sum())
@@ -936,6 +946,26 @@ def overlap_reads(rb: ReadBank, params: ZmoParams | None = None,
     """Engine-dispatching alias (dm = dot-matrix, sw = banded local DP)."""
     return overlap_dmo(rb, params, progress, preattempted, attempted_out,
                        device=device)
+
+
+def read_pair_ledger(paths):
+    """Load -L ledger files: two read names per line."""
+    pairs = []
+    if isinstance(paths, str):
+        paths = [paths]
+    for path in paths:
+        with open(path) as fh:
+            for line in fh:
+                c = line.split()
+                if len(c) >= 2:
+                    pairs.append((c[0], c[1]))
+    return pairs
+
+
+def write_pair_ledger(path, pairs):
+    with open(path, "w") as fh:
+        for a, b in pairs:
+            fh.write(f"{a}\t{b}\n")
 
 
 def write_overlaps(path: str, rb: ReadBank, overlaps) -> None:

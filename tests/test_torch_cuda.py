@@ -1565,3 +1565,87 @@ def test_graft_entry_forward_cuda_matches_cpu(cuda):
     assert len(got) == 8
     for k, (g, e) in enumerate(zip(got, exp)):
         assert torch.equal(g, e), k
+
+
+# ------------------------------------------------------ global NW (nwglobal)
+# tests/test_torch_swdp.py feeds the same inputs to the JAX package.
+
+
+def nw_pairs(rng, B, L, err=0.13):
+    """B pairs of windows of L codes: a read and a mutated copy of it, at
+    lengths from 0 to L, unequal, some with an N (code 4) inside; the last
+    pair has alen L, and from B = 6 on the first three have alen 0, blen 0
+    or both."""
+    from smartdenovo_tpu_torch.utils.simulate import mutate_read
+
+    a = np.full((B, L), 4, np.uint8)
+    b = np.full((B, L), 4, np.uint8)
+    alen = rng.integers(0, L + 1, B).astype(np.int32)
+    blen = rng.integers(0, L + 1, B).astype(np.int32)
+    alen[-1] = L
+    if B >= 6:
+        alen[:3] = (0, 5, 0)
+        blen[:3] = (7, 0, 0)
+    for k in range(B):
+        src = rng.integers(0, 4, L).astype(np.uint8)
+        a[k, :alen[k]] = src[:alen[k]]
+        mut = mutate_read(rng, src, err)[:L]
+        n = min(int(blen[k]), len(mut))
+        blen[k] = n
+        b[k, :n] = mut[:n]
+        if k % 4 == 1 and alen[k] > 2:
+            a[k, alen[k] // 2] = 4
+        if k % 4 == 2 and n > 2:
+            b[k, n // 3] = 4
+    return a, b, alen, blen
+
+
+@pytest.mark.parametrize("L,B,path", [(256, 24, "shared"), (256, 24, "global"),
+                                      (19_370, 2, "global")])
+def test_nwglobal_cuda_matches_plain(cuda, L, B, path, monkeypatch):
+    """Scores and every byte of the plane; 3 (L + 1) ints fit shared
+    memory at L 256, and L 19,370 is the first L past it, so the kernel
+    keeps its diagonals in the global scratch (the second case forces that
+    path at L 256)."""
+    from smartdenovo_tpu_torch.ops import swdp
+
+    if path == "global" and L == 256:
+        monkeypatch.setattr(swdp, "NW_SMEM_CAP", 0)
+    assert (3 * (L + 1) * 4 <= swdp.NW_SMEM_CAP) == (path == "shared")
+    args = [_t(x).to(cuda) for x in nw_pairs(np.random.default_rng(L + B),
+                                             B, L)]
+    n0 = _build.LAUNCHES["nwglobal"]
+    got = swdp.batch_global_align(*args, max_len=L)
+    assert _build.LAUNCHES["nwglobal"] == n0 + 1
+    exp = swdp.batch_global_align_plain(*args, max_len=L)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], exp[0])
+    assert torch.equal(got[1], exp[1])
+
+
+@pytest.mark.parametrize("engine", ["dm", "sw"])
+def test_overlap_vtab_cuda_matches_cpu(cuda, engine):
+    """matcher="vtab" on the card: records equal to the CPU's, K1 (and
+    under sw the SW local DP) launched."""
+    import dataclasses
+
+    from smartdenovo_tpu_torch.data.readbank import ReadBank
+    from smartdenovo_tpu_torch.pipeline.zmo import ZmoParams, overlap_dmo
+
+    if engine == "dm":
+        rb = _gpass_bank()
+        p = ZmoParams.dmo(batch_q=8, ncand=64, matcher="vtab")
+    else:
+        rb = ReadBank(*sw_bank())
+        p = ZmoParams.zmo(matcher="vtab", **SW_PARAMS)
+    _build.reset_launches()
+    got = [dataclasses.astuple(o)
+           for o in overlap_dmo(rb, p, progress=False, device=cuda)]
+    launches = dict(_build.LAUNCHES)
+    exp = [dataclasses.astuple(o)
+           for o in overlap_dmo(rb, p, progress=False, device="cpu")]
+    assert len(got) > 30 and got == exp
+    assert launches["sseg"] > 0
+    assert launches["jpost"] == launches["pexpand"] == 0
+    if engine == "sw":
+        assert launches["swlocal"] > 0

@@ -36,6 +36,11 @@ COPIES = [
     ("graph.obt", ()),
     ("pipeline.h5f5q", ()),
     ("ops.seeds:np_canonical_kmers", ()),
+    ("ops.seeds:extract_seeds_np", ()),
+    ("ops.seeds:np_jenkins_u32", ()),
+    ("ops.swdp:traceback_batch", ()),
+    ("pipeline.zmo:read_pair_ledger", ()),
+    ("pipeline.zmo:write_pair_ledger", ()),
     ("pipeline.corr", ("join_fragments_dag",)),
     ("pipeline.corr:join_fragments", ()),
     ("ops.banded:make_band_centers", ()),
@@ -153,6 +158,42 @@ def test_copy_equals_source(name, changed):
               and isinstance(v, (int, float, str, bytes))]
     for k in consts:
         assert getattr(t, k) == getattr(j, k), k
+
+
+def test_numpy_seed_twins_match_the_port(tmp_path):
+    """The copied numpy twins agree with the port's own device code: the
+    scan-loop oracle with `extract_seeds` on random reads, the numpy hash
+    with `jenkins_hash_u32`; and the copied ledger helpers round-trip."""
+    import torch
+
+    from smartdenovo_tpu_torch.ops import seeds
+    from smartdenovo_tpu_torch.pipeline.zmo import (read_pair_ledger,
+                                                    write_pair_ledger)
+
+    rng = np.random.default_rng(7)
+    for trial, k in enumerate((10, 16, 5)):
+        n = int(rng.integers(30, 300))
+        seq = rng.integers(0, 4, n).astype(np.uint8)
+        seq[n // 2: n // 2 + 4] = seq[n // 2]        # a homopolymer run
+        for hz in (True, False):
+            res = seeds.extract_seeds(torch.from_numpy(seq[None]),
+                                      torch.tensor([n]), k, hz)
+            v = res["valid"][0].numpy()
+            got = list(zip(res["kmer"][0].numpy()[v].tolist(),
+                           res["dir"][0].numpy()[v].astype(int).tolist(),
+                           res["off"][0].numpy()[v].tolist(),
+                           res["span"][0].numpy()[v].tolist()))
+            assert got == seeds.extract_seeds_np(seq, k, hz), (trial, hz)
+    keys = rng.integers(0, 1 << 32, 5000, dtype=np.uint64)
+    assert np.array_equal(
+        seeds.np_jenkins_u32(keys).astype(np.int64),
+        seeds.jenkins_hash_u32(torch.from_numpy(keys.astype(np.int64))).numpy())
+    pairs = [("pb1", "pb2"), ("pb3", "pb1")]
+    write_pair_ledger(str(tmp_path / "a.pairs"), pairs)
+    (tmp_path / "b.pairs").write_text("pb9\tpb8\textra\nlonely\n")
+    assert read_pair_ledger(str(tmp_path / "a.pairs")) == pairs
+    assert read_pair_ledger([str(tmp_path / "a.pairs"),
+                             str(tmp_path / "b.pairs")]) == pairs + [("pb9", "pb8")]
 
 
 def test_dagcns_source_equals_native():

@@ -144,15 +144,20 @@ def test_port_imports_no_jax():
 
 
 def test_unported_paths_raise(bank, tmp_path):
-    """What the port refuses raises: the vtab matcher, and -G with the sw
-    engine (the JAX package runs dm there); the paths it runs since they
-    were ported do not: -G 2 (records and `zmo -G 2` bytes equal to the
-    JAX package's, at batch_q 8 where no budget overflows), the whole-read
-    consensus engine and the side tools (`pre` writes the JAX package's
-    bytes)."""
-    for kw in (dict(matcher="vtab"), dict(gparts=2, engine="sw")):
-        with pytest.raises(NotImplementedError):
-            tzmo.overlap_dmo(bank, tzmo.ZmoParams.dmo(**kw), device="cpu")
+    """What the port refuses raises: -G with the sw engine (the JAX package
+    runs dm there); the paths it runs since they were ported do not: the
+    vtab matcher (its records equal the JAX package's in
+    tests/test_torch_vtab.py), -G 2 (records and `zmo -G 2` bytes equal to
+    the JAX package's, at batch_q 8 where no budget overflows), the
+    whole-read consensus engine and the side tools (`pre` writes the JAX
+    package's bytes)."""
+    with pytest.raises(NotImplementedError):
+        tzmo.overlap_dmo(bank, tzmo.ZmoParams.dmo(gparts=2, engine="sw"),
+                         device="cpu")
+    vt = tzmo.overlap_dmo(bank, tzmo.ZmoParams.dmo(matcher="vtab", batch_q=8,
+                                                   ncand=64),
+                          progress=False, device="cpu")
+    assert len(vt) > 300
     kw = dict(gparts=2, batch_q=8, ncand=64)
     trec = tzmo.overlap_dmo(bank, tzmo.ZmoParams.dmo(**kw), progress=False,
                             device="cpu")
