@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--workdir DIR]
     python3 chip_smoke.py --only swlocal     # device, build, phase 3's swlocal
     python3 chip_smoke.py --only swwide      # device, build, phase 3's swwide
-    python3 chip_smoke.py --only nwglobal    # device, build, phase 3's nwglobal
+    python3 chip_smoke.py --only nwglobal    # device, build, phase 3's nwglobal rows
     python3 chip_smoke.py --only partitioned # device, build, phase 10
     python3 chip_smoke.py --only vtab        # device, build, phase 11
 
@@ -42,10 +42,13 @@ non-zero:
             small batch of wide band steps at W 1600 (its shared-memory
             path) held equal too; its block shape and the time of each
             call and of the live-row plan are printed; the global NW DP
-            (nwglobal) on 2,048 pairs of 384-512 bp windows at 13%
-            divergence, L 512, timed and held equal to its plain version
-            (scores and every byte of the direction plane), its bound the
-            larger of the plane's bytes and the live cells' operations
+            (nwglobal) at its two callers' shapes, 2,048 pairs of 384-512
+            bp windows at 13% divergence, L 512, and phase 11 (c)'s first
+            DAG-loop call, 24 reads at L 2,048: each timed and held equal
+            to its plain version on the card (scores and every byte of the
+            direction plane), its bound the larger of the plane's bytes
+            and the live cells' operations, and the instance and shape
+            swdp.nw_plan picked printed
 4. join     the overlapper with the sort-join matcher on a deep 25 kb
             simulation, on cuda and on cpu: the overlap lists must be
             equal record for record, and K2 and K3 must have launched
@@ -151,8 +154,8 @@ non-zero:
             (c) tests/test_dagcns.py's consensus loop through
                 batch_global_align at L 2,048 (a 2,000 bp truth, 24 reads
                 at 10% error, three iterations): the first iteration equal
-                to the plain version on the cpu, the consensus identity
-                above 0.97 and above the backbone's
+                to the plain version on the same device tensors, the
+                consensus identity above 0.97 and above the backbone's
 
 The last lines are one JSON object of kernel results (all ten kernels,
 each launched on the main path: K1-K3 in phase 5, segdp in 6 (c), the
@@ -965,50 +968,79 @@ def _nw_batch(seed, B=NW_B, L=NW_L):
     return a, b, alen, blen
 
 
-def phase_nwglobal(dev):
-    """nwglobal (csrc/nwglobal.cu) on NW_B pairs of 384-512 bp windows at
-    13% divergence, L NW_L: scores and every byte of the direction plane
-    held equal to the plain version on the same inputs (tolerance 0),
-    timed (median of 10 calls, each alone, and the mean of 10 in a row)
-    beside the plain version (median of 3).  The bound is the larger of
-    the plane's and the inputs' bytes over HBM and the live cells,
-    sum (alen + 1)(blen + 1), at SW_OPS_PER_CELL int32 operations over the
-    int32 rate.  No PyTorch call computes this DP (library: none)."""
+def nw_plan_text(L, B):
+    """The instance batch_global_align takes on the card for B pairs at L
+    (swdp.nw_plan), in words."""
+    from smartdenovo_tpu_torch.ops import swdp
+
+    plan = swdp.nw_plan(L, B)
+    if plan[0] == "register":
+        P, warps, pairs = plan[1:]
+        return (f"register instance, P {P} rows a lane, {warps} warp(s) a "
+                f"pair, {pairs} pair(s) a block")
+    return "wide instance, " + ("shared memory" if plan[1]
+                                else "global scratch")
+
+
+def _nw_row(dev, x, name):
+    """One nwglobal row: the inputs x (a, b, alen, blen as numpy) on the
+    card, scores and every byte of the plane held equal to the plain
+    version on the same device tensors (tolerance 0), timed (median of 10
+    calls, each alone, and the mean of 10 in a row) beside the plain
+    version (its one call, ~3 s at the DAG loop's shape).  The bound is
+    the larger of the plane's and the inputs' bytes over HBM and the live
+    cells, sum (alen + 1)(blen + 1), at SW_OPS_PER_CELL int32 operations
+    over the int32 rate."""
     import torch
 
     from smartdenovo_tpu_torch.kernels import _build
     from smartdenovo_tpu_torch.ops import swdp
 
-    t = [torch.from_numpy(x).to(dev) for x in _nw_batch(91)]
+    t = [torch.from_numpy(v).to(dev) for v in x]
     B, L = t[0].shape
     n0 = _build.LAUNCHES["nwglobal"]
     got = swdp.batch_global_align(*t, max_len=L)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
     exp = swdp.batch_global_align_plain(*t, max_len=L)
-    torch.cuda.synchronize()
+    ev[1].record()
+    ev[1].synchronize()
+    pms = ev[0].elapsed_time(ev[1])
     if _build.LAUNCHES["nwglobal"] != n0 + 1:
         raise AssertionError("batch_global_align did not launch nwglobal")
     if not torch.equal(got[1], exp[1]):
-        raise AssertionError("nwglobal's direction plane differs from its "
-                             "plain version")
+        raise AssertionError(f"nwglobal's direction plane differs from its "
+                             f"plain version ({name})")
     err = max_abs(got[0], exp[0])
     if err:
         raise AssertionError(f"nwglobal's scores differ from its plain "
-                             f"version (max abs err {err})")
+                             f"version ({name}; max abs err {err})")
     del got, exp
     call = lambda: swdp.batch_global_align(*t, max_len=L)  # noqa: E731
     ms, rms = cuda_ms(call), cuda_ms(call, in_a_row=True)
-    pms = cuda_ms(lambda: swdp.batch_global_align_plain(*t, max_len=L),
-                  reps=3)
     cells = int(((t[2].to(torch.int64) + 1) * (t[3].to(torch.int64) + 1))
                 .sum())
     plane = B * (2 * L + 1) * (L + 1)
     tm = timing(ms, pms, plane + 2 * B * L + 12 * B, SW_OPS_PER_CELL * cells)
-    say(f"kernel nwglobal B={B} L={L} ({cells} live cells, plane {plane} "
-        f"bytes): {ms:.3f} ms ({rms:.3f} in a row), plain {pms:.1f} ms, "
-        f"bound {tm['bound_ms']:.3f} ms ({tm['bound_by']}), share "
-        f"{tm['share']:.4f}; equal (scores and plane)")
+    plan = nw_plan_text(L, B)
+    say(f"kernel nwglobal {name} B={B} L={L} ({cells} live cells, plane "
+        f"{plane} bytes; {plan}): {ms:.3f} ms ({rms:.3f} in a row), plain "
+        f"{pms:.1f} ms, bound {tm['bound_ms']:.3f} ms ({tm['bound_by']}), "
+        f"share {tm['share']:.4f}; equal (scores and plane)")
     return dict(tm, max_abs_err=err, shape=f"B {B}, L {L}", cells=cells,
-                ms_in_a_row=rms)
+                ms_in_a_row=rms, plan=plan)
+
+
+def phase_nwglobal(dev):
+    """nwglobal (csrc/nwglobal.cu) at its two callers' shapes (_nw_row
+    each): NW_B pairs of 384-512 bp windows at 13% divergence, L NW_L,
+    and phase 11 (c)'s DAG loop, iteration 1 (nw_dag_inputs: 24 reads
+    against the backbone, L NW_DAG_L).  Each row prints the instance and
+    shape swdp.nw_plan picked.  No PyTorch call computes this DP
+    (library: none).  Returns the first row with both under "shapes"."""
+    rows = [_nw_row(dev, _nw_batch(91), "phase-3 batch"),
+            _nw_row(dev, nw_dag_inputs()[0], "DAG loop")]
+    return dict(rows[0], shapes=rows)
 
 
 def _plain_wr(kind, args, LA, W):
@@ -2439,21 +2471,28 @@ def vtab_against_cpu(dev):
             f"{json.dumps(launches)}), cpu {walls['cpu']:.1f} s")
 
 
-def nw_dag_loop(dev):
-    """(c): tests/test_dagcns.py's consensus loop at a larger size: a
-    2,000 bp truth, a backbone at 8% error, 24 reads at 10%, windows of
-    NW_DAG_L (reads cut there), three iterations of batch_global_align on
-    `dev`, the host traceback and the native DAG.  The first iteration's
-    scores and plane must equal the plain version's on the CPU; the
-    consensus identity must pass 0.97 and the backbone's.  Returns the
-    nwglobal launches of the loop."""
+def _dag_window(cns, reads, L):
+    """batch_global_align's inputs of one DAG-loop iteration: the
+    consensus against each read, in windows of L."""
     import numpy as np
-    import torch
 
-    from smartdenovo_tpu_torch.data.readbank import codes_to_seq
-    from smartdenovo_tpu_torch.kernels import _build
-    from smartdenovo_tpu_torch.ops import swdp
-    from smartdenovo_tpu_torch.utils.native import DagCns
+    B = len(reads)
+    a = np.full((B, L), 4, np.uint8)
+    b = np.full((B, L), 4, np.uint8)
+    alen = np.full(B, len(cns), np.int32)
+    blen = np.array([len(r) for r in reads], np.int32)
+    a[:, :len(cns)] = cns
+    for i, r in enumerate(reads):
+        b[i, :len(r)] = r
+    return a, b, alen, blen
+
+
+def nw_dag_inputs():
+    """The DAG loop's data: a 2,000 bp truth, a backbone at 8% error and 24
+    reads at 10% (seed 44, each cut at NW_DAG_L), and iteration 1's
+    inputs.  Returns (inputs, truth, backbone, reads)."""
+    import numpy as np
+
     from smartdenovo_tpu_torch.utils.simulate import mutate_read
 
     L = NW_DAG_L
@@ -2461,32 +2500,48 @@ def nw_dag_loop(dev):
     truth = rng.integers(0, 4, 2000).astype(np.uint8)
     backbone = mutate_read(rng, truth, 0.08)[:L]
     reads = [mutate_read(rng, truth, 0.10)[:L] for _ in range(24)]
+    return _dag_window(backbone, reads, L), truth, backbone, reads
+
+
+def nw_dag_loop(dev):
+    """(c): tests/test_dagcns.py's consensus loop at a larger size
+    (nw_dag_inputs), three iterations of batch_global_align on `dev`, the
+    host traceback and the native DAG.  The first iteration's scores and
+    plane must equal the plain version's on the same device tensors; the
+    consensus identity must pass 0.97 and the backbone's.  Returns the
+    nwglobal launches of the loop."""
+    import torch
+
+    from smartdenovo_tpu_torch.data.readbank import codes_to_seq
+    from smartdenovo_tpu_torch.kernels import _build
+    from smartdenovo_tpu_torch.ops import swdp
+    from smartdenovo_tpu_torch.utils.native import DagCns
+
+    L = NW_DAG_L
+    (a, b, alen, blen), truth, backbone, reads = nw_dag_inputs()
     B = len(reads)
     cns = backbone
     _build.reset_launches()
     t0 = time.perf_counter()
     kernel_s = plain_s = 0.0
     for it in range(3):
-        a = np.full((B, L), 4, np.uint8)
-        b = np.full((B, L), 4, np.uint8)
-        alen = np.full(B, len(cns), np.int32)
-        blen = np.array([len(r) for r in reads], np.int32)
-        a[:, :len(cns)] = cns
-        for i, r in enumerate(reads):
-            b[i, :len(r)] = r
-        host = [torch.from_numpy(x) for x in (a, b, alen, blen)]
+        if it:
+            a, b, alen, blen = _dag_window(cns, reads, L)
+        x = [torch.from_numpy(v).to(dev) for v in (a, b, alen, blen)]
         tk = time.perf_counter()
-        score, dirs = swdp.batch_global_align(*(x.to(dev) for x in host),
-                                              max_len=L)
-        dirs = dirs.cpu()
+        score, dd = swdp.batch_global_align(*x, max_len=L)
+        dirs = dd.cpu()
         kernel_s += time.perf_counter() - tk
         if it == 0:
             tp = time.perf_counter()
-            ps, pd = swdp.batch_global_align_plain(*host, max_len=L)
+            ps, pd = swdp.batch_global_align_plain(*x, max_len=L)
+            same = torch.equal(score, ps) and torch.equal(dd, pd)
             plain_s = time.perf_counter() - tp
-            if not (torch.equal(score.cpu(), ps) and torch.equal(dirs, pd)):
+            if not same:
                 raise AssertionError("nwglobal in the DAG loop differs from "
-                                     "the plain version on the CPU")
+                                     f"the plain version on {dev}")
+            del ps, pd
+        del dd
         g = DagCns()
         g.set_backbone(cns)
         for i, (ops, counts) in enumerate(
@@ -2502,7 +2557,7 @@ def nw_dag_loop(dev):
     ident_bb = identity(codes_to_seq(backbone), codes_to_seq(truth))
     say(f"DAG loop through nwglobal (B {B}, L {L}, 3 iterations): "
         f"{time.perf_counter() - t0:.1f} s, of it the align calls with their "
-        f"fetch {kernel_s:.2f} s; the plain version on the cpu (iteration "
+        f"fetch {kernel_s:.2f} s; the plain version on {dev} (iteration "
         f"1) {plain_s:.1f} s, equal; consensus {len(cns)} bp, identity "
         f"{ident:.4f} (backbone {ident_bb:.4f}; bars 0.97 and the "
         f"backbone's); nwglobal launches {launches}")

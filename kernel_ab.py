@@ -3,8 +3,8 @@
 turns: other, this, this, other.
 
     python3 kernel_ab.py OTHER_ROOT [--kernels banded refine refine5q swlocal
-                                               swwide zmo] [--B 64 528]
-                                               [--LA 32768]
+                                               swwide nwglobal zmo]
+                                               [--B 64 528] [--LA 32768]
 
 OTHER_ROOT is another checkout (for example `git archive` of an earlier
 commit unpacked into a directory that .gitignore lists).  The inputs are
@@ -14,7 +14,10 @@ for the refines, seeds 31-33); for swlocal (the SW local DP) one batch of
 the E. coli zmo path, `_sw_batch(77)` (2,048 pairs, W 256; --B and --LA do
 not apply); for swwide (the wide-band SW local DP) phase 3's call of `cyc`
 on the E. coli reads, `cyc_chunk` (2,048 reads against their reverse
-complements, LA 16,384, W 1600; timed over 5 calls each).  `zmo` is not
+complements, LA 16,384, W 1600; timed over 5 calls each); for nwglobal
+(the global NW DP, `batch_global_align`) its two callers' shapes, phase
+3's batch `_nw_batch(91)` (2,048 pairs, L 512) and the DAG loop's first
+call `nw_dag_inputs()` (24 reads, L 2,048).  `zmo` is not
 one kernel but chip_smoke.py phase 8 (a), the end-to-end run that holds
 swlocal: `asm -e zmo` through the CLI on the E. coli reads
 (`ecoli_reads`), whose `phase2` stage, wall and overlap count it reports.  Each turn is a process of its own with its checkout's root
@@ -77,6 +80,18 @@ def one_turn(root, inputs, kernels, Bs, LA):
         out[f"swlocal B={args[0].shape[0]} LA={LAs}"] = ms
         del args
         torch.cuda.empty_cache()
+    if "nwglobal" in kernels:
+        from smartdenovo_tpu_torch.ops import swdp
+
+        for tag, name in (("nw3", "phase-3 batch"), ("nwdag", "DAG loop")):
+            args = [torch.from_numpy(z[f"{tag}_{t}"]).to(dev)
+                    for t in range(4)]
+            B, L = args[0].shape
+            ms = cs.cuda_ms(lambda: swdp.batch_global_align(*args,
+                                                            max_len=L))
+            out[f"nwglobal {name} B={B} L={L}"] = ms
+            del args
+            torch.cuda.empty_cache()
     if "swwide" in kernels:
         from smartdenovo_tpu_torch.ops import overlap_dp
 
@@ -105,7 +120,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other", help="root of the other checkout")
     ap.add_argument("--kernels", nargs="+", default=list(WR_KINDS),
-                    choices=list(WR_KINDS) + ["swlocal", "swwide", "zmo"])
+                    choices=list(WR_KINDS) + ["swlocal", "swwide",
+                                              "nwglobal", "zmo"])
     ap.add_argument("--B", type=int, nargs="+", default=[64, 528])
     ap.add_argument("--LA", type=int, default=32768)
     ap.add_argument("--turn", default=None, help=argparse.SUPPRESS)
@@ -130,6 +146,10 @@ def main() -> int:
             x, LAc = cs.cyc_chunk(os.path.join(tmp, "ecoli_reads.fa"), "cpu")
             arrays.update({f"swwide_{t}": v.numpy() for t, v in enumerate(x)})
             arrays["swwide_LA"] = np.int64(LAc)
+        if "nwglobal" in args.kernels:
+            for tag, x in (("nw3", cs._nw_batch(91)),
+                           ("nwdag", cs.nw_dag_inputs()[0])):
+                arrays.update({f"{tag}_{t}": v for t, v in enumerate(x)})
         if "swlocal" in args.kernels:
             x, LAs = cs._sw_batch(77, W=SW_W)
             arrays.update({f"swlocal_{t}": v for t, v in enumerate(x)})

@@ -81,9 +81,9 @@ _SIGNATURES = {
     # after i1 (the pairs whose band moves 0 or 1 column a row) and the
     # block shape P, warps after W
     "swwide_dp": [_P] * 11 + [_I32] * 9 + [_P] * 2,
-    # a, b, alen, blen, B, L, match, mismatch, gap, in_smem, scratch,
-    # score, dirs, stream
-    "nwglobal_align": [_P] * 4 + [_I32] * 6 + [_P] * 4,
+    # a, b, alen, blen, B, L, match, mismatch, gap, P (0: the wide
+    # instance), warps, pairs, in_smem, scratch, score, dirs, stream
+    "nwglobal_align": [_P] * 4 + [_I32] * 9 + [_P] * 4,
 }
 _RESTYPES = {"sseg_scratch_ints": _I64, "jpost_scratch_ints": _I64,
              "pexpand_scratch_ints": _I64}   # the others return an int

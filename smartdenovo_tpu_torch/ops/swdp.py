@@ -10,11 +10,14 @@ Ties go DIAG > UP > LEFT; a match needs equal codes below 4, so an N (4)
 inside a read mismatches; row 0 and column 0 hold gap * j and gap * i.
 
 `batch_global_align` dispatches on the tensors' device: on CUDA it
-launches the hand-written kernel of csrc/nwglobal.cu (one block a pair, a
-barrier a diagonal); on the CPU it runs `batch_global_align_plain`, the
-JAX scan step for step in PyTorch, int32 throughout.  `traceback_batch`
-is a copy of the JAX package's host traceback; `align_strings` is the
-port's (ops/banded.py), under this module's name as in the JAX package.
+launches the hand-written kernel of csrc/nwglobal.cu, whose instance
+`nw_plan` picks by shape (the register instance up to L NW_REG_MAX_L,
+rows in registers and a warp a strip of them, in the shape `nw_shape`
+gives; past it the wide instance, a block a pair); on the CPU it runs
+`batch_global_align_plain`, the JAX scan step for step in PyTorch, int32
+throughout.  `traceback_batch` is a copy of the JAX package's host
+traceback; `align_strings` is the port's (ops/banded.py), under this
+module's name as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,9 +33,63 @@ NEG_INF = -(1 << 28)
 # traceback codes
 DIAG, UP, LEFT, STOP = 1, 2, 3, 0
 
-# dynamic shared memory a block may take on Hopper; past it the kernel
-# keeps its three diagonals in a global scratch
+# dynamic shared memory a block may take on Hopper; past it the wide
+# instance keeps its three diagonals in a global scratch
 NW_SMEM_CAP = 232448
+# the register instance's rows a lane (its template instances in
+# csrc/nwglobal.cu), and the rows a lane below which nw_shape stops
+# spreading a pair over more warps (fewer independent groups a warp)
+NW_PS = (1, 2, 3, 4, 6, 8, 10, 12, 14, 17, 20, 24, 28, 32)
+NW_MIN_P = 4
+# warp schedulers of an H100 (132 SMs x 4): the warps that fill the card
+NW_FILL_WARPS = 528
+
+
+def nw_max_warps(P: int) -> int:
+    """Warps a block of the register instance may hold at P rows a lane
+    (csrc/nwglobal.cu NW_REG_THREADS: ~3 P + 30 registers a thread within
+    the SM's 65,536)."""
+    return 32 if P <= 8 else (16 if P <= 20 else 12)
+
+
+# the longest L the register instance covers (32 P rows a warp, at most
+# nw_max_warps(P) warps a pair); past it the wide instance
+NW_REG_MAX_L = max(32 * P * nw_max_warps(P) for P in NW_PS) - 1
+
+
+def nw_shape(L: int, B: int):
+    """(P, warps, pairs) of the register instance for B pairs at L: the
+    fewest warps a pair whose 32 P rows a warp cover the L + 1 rows, with
+    P the smallest instance that does; while B x warps leaves some of the
+    card's NW_FILL_WARPS schedulers without a warp, more warps a pair at a
+    smaller P, down to NW_MIN_P.  Pairs a block: 8 one-warp pairs, else
+    one pair (its warps meet at a named barrier a diagonal).  None past
+    NW_REG_MAX_L."""
+    rows = L + 1
+    shapes = []                       # (warps, P), P falling
+    for w in range(1, 33):
+        need = -(-rows // (32 * w))
+        P = next((p for p in NW_PS if p >= need), None)
+        if P is not None and w <= nw_max_warps(P) and (
+                not shapes or P < shapes[-1][1]):
+            shapes.append((w, P))
+    if L < 1 or not shapes:
+        return None
+    w, P = shapes[0]
+    for w2, P2 in shapes[1:]:
+        if B * w >= NW_FILL_WARPS or P2 < NW_MIN_P:
+            break
+        w, P = w2, P2
+    return P, w, 8 if w == 1 else 1
+
+
+def nw_plan(L: int, B: int):
+    """The instance batch_global_align launches on CUDA for B pairs at L:
+    ("register", P, warps, pairs) or ("wide", in_smem)."""
+    shape = nw_shape(L, B) if L <= NW_REG_MAX_L else None
+    if shape is not None:
+        return ("register",) + shape
+    return ("wide", 3 * (L + 1) * 4 <= NW_SMEM_CAP)
 
 
 def batch_global_align(a, b, alen, blen, *, max_len: int, match: int = 2,
@@ -129,17 +186,23 @@ def _nw_cuda(a, b, alen, blen, *, max_len, match, mismatch, gap):
     dirs = torch.empty((B, 2 * L + 1, W), dtype=torch.uint8, device=dev)
     if B == 0:
         return score, dirs
-    # three diagonals of int32 a block: shared memory where they fit,
-    # else a scratch of the same layout in device memory
-    in_smem = 3 * W * 4 <= NW_SMEM_CAP
+    plan = nw_plan(L, B)
+    if plan[0] == "register":
+        P, warps, pairs = plan[1:]
+        in_smem = 1
+    else:
+        # the wide instance's three diagonals of int32: shared memory
+        # where they fit, else a scratch of the same layout in device memory
+        P = warps = pairs = 0
+        in_smem = plan[1]
     scratch = (torch.empty(0, dtype=torch.int32, device=dev) if in_smem
                else torch.empty((B, 3, W), dtype=torch.int32, device=dev))
     _build.LAUNCHES["nwglobal"] += 1
     _build.check(_build.lib().nwglobal_align(
         a.data_ptr(), b.data_ptr(), alen.data_ptr(), blen.data_ptr(), B, L,
-        match, mismatch, gap, int(in_smem), scratch.data_ptr(),
-        score.data_ptr(), dirs.data_ptr(), _build.stream_of(a)),
-        "nwglobal_align")
+        match, mismatch, gap, P, warps, pairs, int(in_smem),
+        scratch.data_ptr(), score.data_ptr(), dirs.data_ptr(),
+        _build.stream_of(a)), "nwglobal_align")
     return score, dirs
 
 

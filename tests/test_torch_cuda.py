@@ -1575,7 +1575,7 @@ def nw_pairs(rng, B, L, err=0.13):
     """B pairs of windows of L codes: a read and a mutated copy of it, at
     lengths from 0 to L, unequal, some with an N (code 4) inside; the last
     pair has alen L, and from B = 6 on the first three have alen 0, blen 0
-    or both."""
+    or both (lengths 5 and 7 cut to L)."""
     from smartdenovo_tpu_torch.utils.simulate import mutate_read
 
     a = np.full((B, L), 4, np.uint8)
@@ -1584,8 +1584,8 @@ def nw_pairs(rng, B, L, err=0.13):
     blen = rng.integers(0, L + 1, B).astype(np.int32)
     alen[-1] = L
     if B >= 6:
-        alen[:3] = (0, 5, 0)
-        blen[:3] = (7, 0, 0)
+        alen[:3] = (0, min(5, L), 0)
+        blen[:3] = (min(7, L), 0, 0)
     for k in range(B):
         src = rng.integers(0, 4, L).astype(np.uint8)
         a[k, :alen[k]] = src[:alen[k]]
@@ -1600,27 +1600,123 @@ def nw_pairs(rng, B, L, err=0.13):
     return a, b, alen, blen
 
 
-@pytest.mark.parametrize("L,B,path", [(256, 24, "shared"), (256, 24, "global"),
-                                      (19_370, 2, "global")])
-def test_nwglobal_cuda_matches_plain(cuda, L, B, path, monkeypatch):
-    """Scores and every byte of the plane; 3 (L + 1) ints fit shared
-    memory at L 256, and L 19,370 is the first L past it, so the kernel
-    keeps its diagonals in the global scratch (the second case forces that
-    path at L 256)."""
+def _nw_check(cuda, x, L, **scores):
+    """batch_global_align on the card against its plain version on the
+    same device tensors: scores and every byte of the plane; one launch."""
     from smartdenovo_tpu_torch.ops import swdp
 
-    if path == "global" and L == 256:
-        monkeypatch.setattr(swdp, "NW_SMEM_CAP", 0)
-    assert (3 * (L + 1) * 4 <= swdp.NW_SMEM_CAP) == (path == "shared")
-    args = [_t(x).to(cuda) for x in nw_pairs(np.random.default_rng(L + B),
-                                             B, L)]
+    args = [_t(v).to(cuda) for v in x]
     n0 = _build.LAUNCHES["nwglobal"]
-    got = swdp.batch_global_align(*args, max_len=L)
+    got = swdp.batch_global_align(*args, max_len=L, **scores)
     assert _build.LAUNCHES["nwglobal"] == n0 + 1
-    exp = swdp.batch_global_align_plain(*args, max_len=L)
+    exp = swdp.batch_global_align_plain(*args, max_len=L, **scores)
     torch.cuda.synchronize()
     assert torch.equal(got[0], exp[0])
     assert torch.equal(got[1], exp[1])
+    return exp[0].cpu()
+
+
+@pytest.mark.parametrize("L,B,path", [(256, 24, "shared"), (256, 24, "global"),
+                                      (19_370, 2, "global")])
+def test_nwglobal_cuda_matches_plain(cuda, L, B, path, monkeypatch):
+    """The wide instance: its three diagonals in shared memory (L 256,
+    where the register instance is set aside), in the global scratch
+    (forced at L 256), and at L 19,370, the first L past shared memory."""
+    from smartdenovo_tpu_torch.ops import swdp
+
+    if L <= swdp.NW_REG_MAX_L:
+        monkeypatch.setattr(swdp, "NW_REG_MAX_L", 0)
+    if path == "global" and L == 256:
+        monkeypatch.setattr(swdp, "NW_SMEM_CAP", 0)
+    assert swdp.nw_plan(L, B) == ("wide", path == "shared")
+    _nw_check(cuda, nw_pairs(np.random.default_rng(L + B), B, L), L)
+
+
+def _nw_shape_firsts(B, top):
+    """The first L of each shape nw_shape picks for B pairs, up to top."""
+    from smartdenovo_tpu_torch.ops import swdp
+
+    out, prev = [], None
+    for L in range(1, top + 1):
+        shape = swdp.nw_shape(L, B)
+        if shape != prev:
+            out.append(L)
+            prev = shape
+    return out
+
+
+def _nw_shape_cases():
+    from smartdenovo_tpu_torch.ops import swdp
+
+    top = swdp.NW_REG_MAX_L
+    # B 24 spreads a pair over warps (the DAG loop's B); B 600 keeps one
+    # warp a pair up to P 32 (phase 3's regime); the last L of a few
+    # shapes fill their rows exactly; then the wide instance's first L
+    cases = [(L, 24) for L in _nw_shape_firsts(24, top)]
+    cases += [(L, 600) for L in _nw_shape_firsts(600, 1023) if L > 128]
+    cases += [(31, 24), (511, 24), (2047, 24), (1023, 600), (top + 1, 2)]
+    return cases
+
+
+@pytest.mark.parametrize("L,B", _nw_shape_cases())
+def test_nwglobal_cuda_shapes(cuda, L, B):
+    """Every shape nw_shape picks, at the first L it takes (its last
+    strip's rows least filled) and at a few last L (filled exactly), on
+    nw_pairs (random lengths, alen / blen 0 and both, N codes inside),
+    and the first L of the wide instance."""
+    from smartdenovo_tpu_torch.ops import swdp
+
+    plan = swdp.nw_plan(L, B)
+    assert (plan[0] == "register") == (L <= swdp.NW_REG_MAX_L)
+    _nw_check(cuda, nw_pairs(np.random.default_rng(3 * L + B), B, L), L)
+
+
+def test_nwglobal_cuda_phase3_batch(cuda):
+    """B 2,048 at L 512, more pairs than warps resident at once: one warp
+    a pair (P 17), 8 pairs a block, and the last of 256 blocks full."""
+    from smartdenovo_tpu_torch.ops import swdp
+
+    assert swdp.nw_plan(512, 2048) == ("register", 17, 1, 8)
+    x = nw_pairs(np.random.default_rng(2048), 2048, 512, err=0.13)
+    _nw_check(cuda, x, 512)
+
+
+@pytest.mark.parametrize("L,B", [(300, 16), (300, 600), (2048, 24)])
+def test_nwglobal_cuda_live_edges(cuda, L, B):
+    """Pairs whose live rows start and end inside a group of 32 rows, on
+    one, and at a strip's edges: alen and blen at the group and strip
+    boundaries and one either side, 0 and L among them."""
+    from smartdenovo_tpu_torch.ops import swdp
+
+    P, warps, _ = swdp.nw_shape(L, B)
+    strip = 32 * P
+    edges = sorted({min(max(e + o, 0), L) for e in
+                    (0, 32, 64, strip, 2 * strip, L) for o in (-1, 0, 1)})
+    a, b, alen, blen = nw_pairs(np.random.default_rng(L + 7), B, L)
+    alen[:] = [edges[k % len(edges)] for k in range(B)]
+    blen[:] = [edges[(3 * k + 1) % len(edges)] for k in range(B)]
+    assert (warps > 1) == (B < 528)
+    _nw_check(cuda, (a, b, alen, blen), L)
+
+
+@pytest.mark.parametrize("L,B", [(512, 64), (2048, 24)])
+def test_nwglobal_cuda_other_scores(cuda, L, B):
+    """match 1, mismatch -2, gap -2 (more ties than the defaults)."""
+    x = nw_pairs(np.random.default_rng(L - B), B, L)
+    _nw_check(cuda, x, L, match=1, mismatch=-2, gap=-2)
+
+
+def test_nwglobal_cuda_zero_lengths(cuda):
+    """alen 0, blen 0 and both, at the register instance's one-warp and
+    many-warp shapes: the first row or column only, and the origin."""
+    for L, B in ((40, 600), (2048, 24)):
+        x = nw_pairs(np.random.default_rng(L), B, L)
+        x[2][: B // 3] = 0
+        x[3][B // 3: 2 * B // 3] = 0
+        x[2][-3:] = 0
+        x[3][-3:] = 0
+        score = _nw_check(cuda, x, L)
+        assert (score[-3:] == 0).all()
 
 
 @pytest.mark.parametrize("engine", ["dm", "sw"])

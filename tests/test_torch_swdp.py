@@ -113,3 +113,42 @@ def test_dag_loop_equals_jax():
 
     assert ident(cns["port"], truth) > 0.97
     assert ident(cns["port"], truth) > ident(backbone, truth)
+
+
+@pytest.mark.parametrize("B", [1, 24, 528, 2048])
+def test_nw_shape_covers_rows_within_limits(B):
+    """For every L from 1 to the register instance's top, nw_shape's
+    (P, warps, pairs) covers the L + 1 rows with no strip left empty, P is
+    a compiled instance, the block stays within the registers its launch
+    bound gives (~3 P + 30 a thread of the SM's 65,536), its 1,024
+    threads and 15 named barriers, and its shared memory (b with its
+    128-byte margins and the ring) within the 48 KB a launch takes without an
+    attribute; past the top nw_plan takes the wide instance."""
+    top = tswdp.NW_REG_MAX_L
+    assert top >= 4096
+    seen = set()
+    for L in range(1, top + 1):
+        P, warps, pairs = tswdp.nw_shape(L, B)
+        assert P in tswdp.NW_PS
+        assert 32 * P * warps >= L + 1 > 32 * P * (warps - 1)
+        assert warps * pairs <= tswdp.nw_max_warps(P)
+        assert (3 * P + 30) * 32 * warps * pairs <= 65536
+        assert warps == 1 or pairs <= 15
+        smem = pairs * ((L + 256 + 3) // 4 * 4) + pairs * 2 * warps * 4
+        assert smem <= 48 * 1024
+        assert tswdp.nw_plan(L, B) == ("register", P, warps, pairs)
+        seen.add(P)
+        if B * warps < tswdp.NW_FILL_WARPS and warps > 1:
+            assert P >= tswdp.NW_MIN_P
+    assert tswdp.nw_shape(top + 1, B) is None
+    assert tswdp.nw_plan(top + 1, B) == ("wide", True)
+    assert tswdp.nw_plan(19_370, B) == ("wide", False)
+    if B == 2048:
+        assert seen == set(tswdp.NW_PS)
+
+
+def test_nw_shape_at_the_callers():
+    """The shapes of the two callers: phase 3's batch (one warp a pair,
+    P 17, 8 pairs a block) and the DAG loop's (17 warps of P 4)."""
+    assert tswdp.nw_plan(512, 2048) == ("register", 17, 1, 8)
+    assert tswdp.nw_plan(2048, 24) == ("register", 4, 17, 1)
