@@ -1,0 +1,8 @@
+"""The segment DP's share of its roofline over every launch in the
+traced window."""
+
+from portbench.harness.trace import roofline_share
+
+
+def read(w):
+    return roofline_share(w, "segdp")
