@@ -44,7 +44,7 @@ from ..ops.banded import (align_strings, banded_align, make_band_centers,
 from ..ops.refine import refine_alignment_batch
 from ..ops.refine5q import refine5q_alignment_batch
 from ..ops.segdp import seg_align_tb, unpack_moves
-from ..utils.timing import timed
+from ..utils.timing import span, timed
 
 # base letter byte -> 2-bit code (4 = other), reference base_bit_table
 _BASE_BIT = np.full(256, 4, np.uint8)
@@ -549,56 +549,61 @@ def _seg_align_pass(unit: LayUnitig, st: _SegState, offs, cns,
     cns coordinates, ra/rb the aligned code rows (4 = gap), ra = read."""
     nreads = len(unit.reads)
     Lc = len(cns)
-    _seed_colmaps(unit, st, offs, cns, p, device=device)
-    rows, b16s, spans = _build_segments(st, nreads, Lc)
-    if not rows:
-        return
-    # Bc = 1024 segments per call bounds the kernel's direction scratch
-    # ([Bc, SEGR, W] u8, 537 MB) and fills the card's 132 SMs; small
-    # unitigs use narrower pow2 tiers
-    Nseg = len(rows)
-    Bc = 1 << max(8, min(10, (Nseg - 1).bit_length()))
-    n_disp = (Nseg + Bc - 1) // Bc
-    Np = n_disp * Bc
-    NB = SEGR // 16 + 2
-    arr = np.zeros((Np, 5), np.int64)
-    arr[:Nseg] = np.asarray(rows, np.int64)
-    b16 = np.zeros((Np, NB), np.int16)
-    b16[:Nseg] = np.stack(b16s)
-    seg_aoff = (st.flat_offs[arr[:, 0]] + arr[:, 1]).astype(np.int64)
-    seg_alen = arr[:, 2].astype(np.int32)
-    seg_alen[Nseg:] = 0
-    seg_w0 = arr[:, 3].astype(np.int64)
-    seg_bl = arr[:, 4].astype(np.int32)
-    from .zmo import pad_pow2 as _pp2
+    with span("cns.segplan"):
+        _seed_colmaps(unit, st, offs, cns, p, device=device)
+        rows, b16s, spans = _build_segments(st, nreads, Lc)
+        if not rows:
+            return
+        # Bc = 1024 segments per call bounds the kernel's direction scratch
+        # ([Bc, SEGR, W] u8, 537 MB) and fills the card's 132 SMs; small
+        # unitigs use narrower pow2 tiers
+        Nseg = len(rows)
+        Bc = 1 << max(8, min(10, (Nseg - 1).bit_length()))
+        n_disp = (Nseg + Bc - 1) // Bc
+        Np = n_disp * Bc
+        NB = SEGR // 16 + 2
+        arr = np.zeros((Np, 5), np.int64)
+        arr[:Nseg] = np.asarray(rows, np.int64)
+        b16 = np.zeros((Np, NB), np.int16)
+        b16[:Nseg] = np.stack(b16s)
+        seg_aoff = (st.flat_offs[arr[:, 0]] + arr[:, 1]).astype(np.int64)
+        seg_alen = arr[:, 2].astype(np.int32)
+        seg_alen[Nseg:] = 0
+        seg_w0 = arr[:, 3].astype(np.int64)
+        seg_bl = arr[:, 4].astype(np.int32)
+        from .zmo import pad_pow2 as _pp2
 
-    cns_pad = np.full(_pp2(Lc + S_LBW + 8), 4, np.uint8)
-    cns_pad[:Lc] = cns
-    open_i, open_d = ga, gb
-    rowsA = np.arange(SEGR, dtype=np.int64)[None, :]
-    rowsB = np.arange(S_LBW, dtype=np.int64)[None, :]
-    t0 = time.perf_counter()
-    outs = []
-    for d0 in range(n_disp):
-        sl = slice(d0 * Bc, (d0 + 1) * Bc)
-        a_dense = st.flat[np.minimum(seg_aoff[sl, None] + rowsA,
-                                     len(st.flat) - 1)]
-        b_dense = cns_pad[np.minimum(seg_w0[sl, None] + rowsB,
-                                     len(cns_pad) - 1)]
-        outs.append(seg_align_tb(
-            *(torch.from_numpy(x).to(device) for x in (
-                a_dense, b_dense, seg_alen[sl], seg_bl[sl], b16[sl])),
-            SEGR=SEGR, LBW=S_LBW, W=S_W, T=S_T,
-            match=p.match, mismatch=p.mismatch,
-            open_i=open_i, open_d=open_d, ext=p.refine_ext))
-    b_beg = np.concatenate([o[1].cpu().numpy() for o in outs])
-    mv_all = np.concatenate([
-        unpack_moves(o[3].cpu().numpy()[None]).transpose(0, 2, 1).reshape(
-            Bc, -1) for o in outs])   # [seg, T] backward streams
+        cns_pad = np.full(_pp2(Lc + S_LBW + 8), 4, np.uint8)
+        cns_pad[:Lc] = cns
+        open_i, open_d = ga, gb
+        rowsA = np.arange(SEGR, dtype=np.int64)[None, :]
+        rowsB = np.arange(S_LBW, dtype=np.int64)[None, :]
+    with span("cns.segdp", segments=Nseg, dispatches=n_disp, Bc=Bc) as sp:
+        outs = []
+        for d0 in range(n_disp):
+            sl = slice(d0 * Bc, (d0 + 1) * Bc)
+            a_dense = st.flat[np.minimum(seg_aoff[sl, None] + rowsA,
+                                         len(st.flat) - 1)]
+            b_dense = cns_pad[np.minimum(seg_w0[sl, None] + rowsB,
+                                         len(cns_pad) - 1)]
+            outs.append(seg_align_tb(
+                *(torch.from_numpy(x).to(device) for x in (
+                    a_dense, b_dense, seg_alen[sl], seg_bl[sl], b16[sl])),
+                SEGR=SEGR, LBW=S_LBW, W=S_W, T=S_T,
+                match=p.match, mismatch=p.mismatch,
+                open_i=open_i, open_d=open_d, ext=p.refine_ext))
+        b_beg = np.concatenate([o[1].cpu().numpy() for o in outs])
+        mv_all = np.concatenate([
+            unpack_moves(o[3].cpu().numpy()[None]).transpose(0, 2, 1).reshape(
+                Bc, -1) for o in outs])   # [seg, T] backward streams
     log("cns %s: %d segments in %d dispatches of %d, %.3fs", unit.name, Nseg,
-        n_disp, Bc, time.perf_counter() - t0)
-    yield from _stitch_reads(unit, st, spans, arr, b_beg, mv_all, cns_pad,
-                             Lc, p, open_i, open_d)
+        n_disp, Bc, sp.seconds)
+    # stitched to a list, so that the span holds the stitcher alone and
+    # not the caller's work on each read
+    with span("cns.stitch"):
+        stitched = list(_stitch_reads(unit, st, spans, arr, b_beg, mv_all,
+                                      cns_pad, Lc, p, open_i, open_d))
+    yield from stitched
 
 
 def _stitch_reads(unit: LayUnitig, st: _SegState, spans, arr, b_beg, mv_all,
@@ -772,9 +777,17 @@ def consensus_unitig(unit: LayUnitig, p: CnsParams | None = None,
     It takes the JAX package's checkpoints as well.  device: where the
     probe anchoring and the DPs run.
     """
+    with span("cns.unitig", rounds=0) as sp_unit:
+        return _unitig_rounds(unit, p or CnsParams(), return_offs, ckpt,
+                              device, sp_unit)
+
+
+def _unitig_rounds(unit: LayUnitig, p: CnsParams, return_offs, ckpt,
+                   device, sp_unit):
+    """consensus_unitig inside its `cns.unitig` span `sp_unit`; each round
+    is a `cns.round` span of seed, align and dag spans."""
     import os
 
-    p = p or CnsParams()
     cns = _gen_backbone(unit)
     nreads = len(unit.reads)
     offs = list(unit.offs)
@@ -806,70 +819,79 @@ def consensus_unitig(unit: LayUnitig, p: CnsParams | None = None,
         log("cns %s: resumed at iteration %d from %s", unit.name,
             start_it + 1, ckpt)
     for it in range(start_it, p.n_iter):
-        t_it = time.perf_counter()
-        dag = DagCns(p.ref_penalty, p.alt_penalty)
-        dag.set_backbone(cns)
-        agree = 0
-        abase = 0
-        pending = []  # (score, beg, end, a0, a1)
-        # reference wtcns: -O in round 1, asymmetric -I/-D afterwards
-        ga = p.gap if it == 0 else p.gap_ins
-        gb = p.gap if it == 0 else p.gap_del
-        if use_seg:
-            # seed (idempotent) BEFORE the align pass so the column maps
-            # can be checkpointed separately
-            _seed_colmaps(unit, st, offs, cns, p, device=device)
-            if ckpt:
-                _save_cns_ckpt(ckpt, it, cns, offs, prev_agree, prev_offs,
-                               prev_cns, st)
-        t_seed = time.perf_counter()
-        split: dict = {}
-        itr = (_seg_align_pass(unit, st, offs, cns, p, ga, gb, device=device)
-               if use_seg else
-               _align_pass(unit, offs, cns, p, ga, gb, device=device,
-                           split=split))
-        for rid, sc, beg, end, ra, rb_ in itr:
-            m = int(np.sum((ra == rb_) & (ra != 4)))
-            # reference acceptance (wtcns.c:347-357): mat >= min_id * aln
-            # AND mat >= min_id * projected read overlap — the aln-columns
-            # test is what rejects junk alignments whose semiglobal span
-            # shrank (mat/span alone lets them pollute the DAG)
-            if (m < p.min_id * ra.shape[0]
-                    or m < p.min_id * len(unit.reads[rid])):
-                continue
-            pending.append((sc, beg, end, rb_, ra, rid))
-            agree += m
-            abase += len(unit.reads[rid])
-            offs[rid] = beg
-        # divergence guard on the PER-BASE agreement rate: insertion bloat
-        # collapses the rate; reads dropping out at layout edges (window
-        # drift) lower the absolute sum but not the rate and must not
-        # abort the polish
-        rate = agree / max(1, abase)
-        if rate < 0.98 * prev_agree:
-            log("cns %s iter %d: agreement rate %.4f << %.4f, keeping previous",
-                unit.name, it + 1, rate, prev_agree)
-            return (prev_cns, prev_offs) if return_offs else prev_cns
-        if rate >= prev_agree:
-            prev_cns, prev_agree, prev_offs = cns, rate, list(offs)
-        t_aln = time.perf_counter()
-        pending.sort(key=lambda t: -t[0])
-        for sc, beg, end, a0, a1, _ in pending:
-            dag.add_alignment(beg, end, a0, a1)
-        dag.merge_nodes()
-        new_cns, mp, dag_score = dag.consensus()
-        # remap offsets old->new
-        if mp is not None and len(mp):
-            for i in range(nreads):
-                o = min(max(0, offs[i]), len(mp) - 1)
-                offs[i] = int(mp[o])
-            if st is not None:
-                st.remap(np.asarray(mp))
-        log("cns %s iter %d: %d reads aligned, len %d -> %d, score %.1f",
-            unit.name, it + 1, len(pending), len(cns), len(new_cns), dag_score)
-        t_end = time.perf_counter()
+        with span("cns.round") as sp_round:
+            with span("cns.seed") as sp_seed:
+                dag = DagCns(p.ref_penalty, p.alt_penalty)
+                dag.set_backbone(cns)
+                agree = 0
+                abase = 0
+                pending = []  # (score, beg, end, a0, a1)
+                # reference wtcns: -O in round 1, asymmetric -I/-D afterwards
+                ga = p.gap if it == 0 else p.gap_ins
+                gb = p.gap if it == 0 else p.gap_del
+                if use_seg:
+                    # seed (idempotent) BEFORE the align pass so the column
+                    # maps can be checkpointed separately
+                    _seed_colmaps(unit, st, offs, cns, p, device=device)
+                    if ckpt:
+                        _save_cns_ckpt(ckpt, it, cns, offs, prev_agree,
+                                       prev_offs, prev_cns, st)
+            with span("cns.align") as sp_align:
+                split: dict = {}
+                itr = (_seg_align_pass(unit, st, offs, cns, p, ga, gb,
+                                       device=device)
+                       if use_seg else
+                       _align_pass(unit, offs, cns, p, ga, gb, device=device,
+                                   split=split))
+                aligned = 0
+                for rid, sc, beg, end, ra, rb_ in itr:
+                    aligned += 1
+                    m = int(np.sum((ra == rb_) & (ra != 4)))
+                    # reference acceptance (wtcns.c:347-357): mat >= min_id
+                    # * aln AND mat >= min_id * projected read overlap — the
+                    # aln-columns test is what rejects junk alignments whose
+                    # semiglobal span shrank (mat/span alone lets them
+                    # pollute the DAG)
+                    if (m < p.min_id * ra.shape[0]
+                            or m < p.min_id * len(unit.reads[rid])):
+                        continue
+                    pending.append((sc, beg, end, rb_, ra, rid))
+                    agree += m
+                    abase += len(unit.reads[rid])
+                    offs[rid] = beg
+                sp_round.counts.update(reads_aligned=aligned,
+                                       reads_accepted=len(pending))
+                # divergence guard on the PER-BASE agreement rate: insertion
+                # bloat collapses the rate; reads dropping out at layout
+                # edges (window drift) lower the absolute sum but not the
+                # rate and must not abort the polish
+                rate = agree / max(1, abase)
+                if rate < 0.98 * prev_agree:
+                    log("cns %s iter %d: agreement rate %.4f << %.4f, "
+                        "keeping previous", unit.name, it + 1, rate,
+                        prev_agree)
+                    return (prev_cns, prev_offs) if return_offs else prev_cns
+                if rate >= prev_agree:
+                    prev_cns, prev_agree, prev_offs = cns, rate, list(offs)
+            with span("cns.dag") as sp_dag:
+                pending.sort(key=lambda t: -t[0])
+                for sc, beg, end, a0, a1, _ in pending:
+                    dag.add_alignment(beg, end, a0, a1)
+                dag.merge_nodes()
+                new_cns, mp, dag_score = dag.consensus()
+                # remap offsets old->new
+                if mp is not None and len(mp):
+                    for i in range(nreads):
+                        o = min(max(0, offs[i]), len(mp) - 1)
+                        offs[i] = int(mp[o])
+                    if st is not None:
+                        st.remap(np.asarray(mp))
+                log("cns %s iter %d: %d reads aligned, len %d -> %d, score "
+                    "%.1f", unit.name, it + 1, len(pending), len(cns),
+                    len(new_cns), dag_score)
+            sp_unit.counts["rounds"] += 1
         log("cns %s iter %d time: seed %.3fs align %.3fs dag %.3fs", unit.name,
-            it + 1, t_seed - t_it, t_aln - t_seed, t_end - t_aln)
+            it + 1, sp_seed.seconds, sp_align.seconds, sp_dag.seconds)
         if not use_seg:
             log("cns %s iter %d align split: %s", unit.name, it + 1,
                 _split_str(split))

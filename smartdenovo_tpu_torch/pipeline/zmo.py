@@ -26,14 +26,13 @@ logged as "stage <name>: <seconds>s".
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
 
 from ..data.readbank import ReadBank
 from ..utils.log import log
-from ..utils.timing import timed
+from ..utils.timing import now, span, timed
 
 from ..ops.banded import (align_strings, banded_align, make_band_centers,
                           traceback_banded)
@@ -346,31 +345,40 @@ def overlap_dmo(rb: ReadBank, params: ZmoParams | None = None,
     if p.matcher not in ("auto", "sweep", "join", "vtab"):
         raise ValueError(f"unknown matcher {p.matcher!r}")
     dev = resolve_device(device)
-    n = len(rb)
-    if n == 0:
+    if len(rb) == 0:
         return []
-    t0 = time.time()
-    flat_d, offs_d, _lens_d, T, Npad = _upload_bank(rb, dev)
-    k16, z10, didx = build_bank_indexes(
-        flat_d, offs_d, ksize=p.ksize, zsize=p.zsize, hz=p.hz,
-        ksave=p.ksave, max_kmer_freq=p.max_kmer_freq,
-        max_zmer_freq=p.max_zmer_freq, zbits=2 * p.zsize)
-    stats = didx.stats.cpu().numpy()                   # sync 1: index stats
-    zcnt = stats[:Npad][:n].astype(np.int64)
-    kneed = stats[Npad: 2 * Npad][:n].astype(np.int64)
-    kprobes = stats[2 * Npad: 3 * Npad][:n].astype(np.int64)
-    comp_len = stats[3 * Npad: 4 * Npad][:n].astype(np.int64)
-    cross = stats[4 * Npad: 5 * Npad][:n].astype(np.int64)
-    max_comp = int(stats[5 * Npad])
-    distinct_kept = int(stats[5 * Npad + 3])
-    # coverage estimate: compressed bases / (distinct kept kmers * ksave)
-    kavg = int(comp_len.sum() // max(1, distinct_kept * p.ksave))
+    with span("zmo.pass") as sp_pass:
+        return _dm_pass(rb, p, dev, progress, preattempted,
+                        attempted_out, parts, part, sp_pass)
+
+
+def _dm_pass(rb, p, dev, progress, preattempted, attempted_out, parts,
+             part, sp_pass):
+    """One pass of the dm or sw engine inside the `zmo.pass` span
+    `sp_pass`; each stage is a child span, logged as it closes."""
+    n = len(rb)
+    with span("zmo.index") as sp:
+        flat_d, offs_d, _lens_d, T, Npad = _upload_bank(rb, dev)
+        k16, z10, didx = build_bank_indexes(
+            flat_d, offs_d, ksize=p.ksize, zsize=p.zsize, hz=p.hz,
+            ksave=p.ksave, max_kmer_freq=p.max_kmer_freq,
+            max_zmer_freq=p.max_zmer_freq, zbits=2 * p.zsize)
+        stats = didx.stats.cpu().numpy()              # sync 1: index stats
+        zcnt = stats[:Npad][:n].astype(np.int64)
+        kneed = stats[Npad: 2 * Npad][:n].astype(np.int64)
+        kprobes = stats[2 * Npad: 3 * Npad][:n].astype(np.int64)
+        comp_len = stats[3 * Npad: 4 * Npad][:n].astype(np.int64)
+        cross = stats[4 * Npad: 5 * Npad][:n].astype(np.int64)
+        max_comp = int(stats[5 * Npad])
+        distinct_kept = int(stats[5 * Npad + 3])
+        # coverage estimate: compressed bases / (distinct kept kmers * ksave)
+        kavg = int(comp_len.sum() // max(1, distinct_kept * p.ksave))
     if progress:
         log("indexes: %d k16 postings (freq cutoff %d), %d zmer postings, "
             "~%dx est coverage; %.1fs",
             int(stats[5 * Npad + 2]), int(stats[5 * Npad + 1]),
-            int(zcnt.sum()), kavg, time.time() - t0)
-        log("stage index: %.3fs", time.time() - t0)
+            int(zcnt.sum()), kavg, sp.seconds)
+        log("stage index: %.3fs", sp.seconds)
 
     A = p.ncand
     Adm = min(p.dm_cand, A) if p.dm_cand > 0 else A
@@ -405,206 +413,225 @@ def overlap_dmo(rb: ReadBank, params: ZmoParams | None = None,
         return rids, qlens, qskip
 
     # ---- phase 1: candidates (exact budgets from the stats pack) ----
-    t1 = time.time()
-    cbud = min(pad_pow2(max((int(kneed[b].sum()) for b in batches), default=1)
-                        + 1024, lo=1 << 14), p.expand_budget_cap)
-    kq = pad_pow2(max((int(kprobes[b].sum()) for b in batches), default=1)
-                  + Q, lo=1 << 12)
-    cand_static = dict(Q=Q, Lc=Lc, A=A, Adm=Adm, cbud=cbud, kq=kq,
-                       ksave=p.ksave, kovl=p.kovl, len_ratio=p.len_ratio)
-    rids_all = np.zeros((B, Q), np.int32)
-    qlens_all = np.zeros((B, Q), np.int32)
-    candbuf = []
-    size_rows = []
-    for bi, b in enumerate(batches):
-        rids, qlens, qskip = batch_inputs(b)
-        rids_all[bi] = rids
-        qlens_all[bi] = qlens
-        cs, _os, sz = _cand_core(
-            torch.from_numpy(rids).to(dev), torch.from_numpy(qlens).to(dev),
-            torch.from_numpy(qskip).to(dev), k16, didx, read_lens_d,
-            **cand_static)
-        candbuf.append(cs)
-        size_rows.append(sz)
-    # sync 2: phase-2 sizes — sizes[:, 0] is the join matcher's exact
-    # expansion mass, sizes[:, 3] the live candidate count (sizes pd)
-    sizes = torch.stack(size_rows).cpu().numpy()
-    t2 = time.time()
+    with span("zmo.phase1", batches=B) as sp:
+        cbud = min(pad_pow2(max((int(kneed[b].sum()) for b in batches),
+                                default=1) + 1024, lo=1 << 14),
+                   p.expand_budget_cap)
+        kq = pad_pow2(max((int(kprobes[b].sum()) for b in batches),
+                          default=1) + Q, lo=1 << 12)
+        cand_static = dict(Q=Q, Lc=Lc, A=A, Adm=Adm, cbud=cbud, kq=kq,
+                           ksave=p.ksave, kovl=p.kovl, len_ratio=p.len_ratio)
+        rids_all = np.zeros((B, Q), np.int32)
+        qlens_all = np.zeros((B, Q), np.int32)
+        candbuf = []
+        size_rows = []
+        for bi, b in enumerate(batches):
+            rids, qlens, qskip = batch_inputs(b)
+            rids_all[bi] = rids
+            qlens_all[bi] = qlens
+            cs, _os, sz = _cand_core(
+                torch.from_numpy(rids).to(dev),
+                torch.from_numpy(qlens).to(dev),
+                torch.from_numpy(qskip).to(dev), k16, didx, read_lens_d,
+                **cand_static)
+            candbuf.append(cs)
+            size_rows.append(sz)
+        # sync 2: phase-2 sizes — sizes[:, 0] is the join matcher's exact
+        # expansion mass, sizes[:, 3] the live candidate count (sizes pd)
+        sizes = torch.stack(size_rows).cpu().numpy()
     if progress:
-        log("phase1 done: %.1fs", t2 - t1)
-        log("stage phase1: %.3fs", t2 - t1)
+        log("stage phase1: %.3fs", sp.seconds)
 
     # ---- phase 2: zmer match + dot-matrix at per-chunk budgets ----
-    qkb_z = pad_pow2(max((int(zcnt[rids_all[bi]].sum()) for bi in range(B)),
-                         default=1) + Q, lo=1 << 13)
-    qkb_c = pad_pow2(max((int(comp_len[b].sum()) for b in batches),
-                         default=1) + Q, lo=1 << 13)
-    if p.matcher in ("vtab", "sweep"):
-        qkb = qkb_z
-    elif p.matcher == "join":
-        qkb = qkb_c
-    else:
-        qkb = max(qkb_z, qkb_c)
-    # dense pair-row budget: live pairs <= 2 dirs x live candidate slots
-    pd = pad_pow2(2 * int(sizes[:, 3].max()) + 64, lo=1 << 12)
-    pair_static = dict(
-        Q=Q, Lc=Lc, Adm=Adm, qkb=qkb, nb=p.nb, kvar=p.kvar,
-        zbits=2 * p.zsize, max_per_read=p.max_zmer_freq, xvar=p.xvar,
-        yvar=p.yvar, min_block_len=p.min_block_len,
-        max_overhang=p.max_overhang, deviation_penalty=p.deviation_penalty,
-        gap_penalty=p.gap_penalty, pd=pd, max_len=Ltier,
-    )
-    if sw_engine:
-        pair_static.update(C=C, Ltier=Ltier, W=p.band_w, match=p.sw_match,
-                           mismatch=p.sw_mismatch, gap=p.sw_gap)
-
-    def pair_budgets(zneed, matcher):
-        if zneed > p.expand_budget_cap:
-            log("WARNING: join expansion %d exceeds the memory cap %d; "
-                "matches will be dropped — lower batch_q", int(zneed),
-                p.expand_budget_cap)
-        mb = min(pad_pow2(int(zneed) + 1024, lo=1 << 14), p.expand_budget_cap)
-        pb = min(pad_pow2(int(zneed) * 3 // 4 + 1024, lo=1 << 14), mb)
-        nbk = pad_pow2(max(pb * 3 // 16, 1 << 14))
-        return dict(mb=mb, pb=pb, nbk=nbk, cx=0, matcher=matcher)
-
-    def sweep_budgets(bi_lo, bi_hi):
-        occ = max(int(zcnt[rids_all[bi]].sum()) for bi in range(bi_lo, bi_hi))
-        cxn = max(int(cross[rids_all[bi]].sum()) for bi in range(bi_lo, bi_hi))
-        mb = pad_pow2(occ + Q, lo=1 << 12)
-        cx = min(pad_pow2(cxn + 1024, lo=1 << 14), p.expand_budget_cap)
-        if cxn + 1024 > p.expand_budget_cap:
-            log("WARNING: sweep cross mass %d exceeds the memory cap %d; "
-                "matches will be dropped — use matcher='auto'", cxn,
-                p.expand_budget_cap)
-        pb = max(cx // (2 if kavg >= 10 else 4), 1 << 14)
-        return dict(mb=mb, cx=cx, pb=pb, nbk=max(pb // 4, 1 << 14),
-                    matcher="sweep")
-
-    def chunk_budgets(c0, sz):
-        """Pick the matcher for this chunk by exact mass: the sweep's
-        cross axis vs the join's candidate-posting expansion."""
-        if p.matcher == "sweep":
-            return sweep_budgets(c0, c0 + sz)
-        if p.matcher in ("vtab", "join"):
-            return pair_budgets(int(sizes[c0: c0 + sz, 0].max()), p.matcher)
-        join_need = int(sizes[c0: c0 + sz, 0].max())
-        cross_need = max(int(cross[rids_all[bi]].sum())
-                         for bi in range(c0, c0 + sz))
-        if cross_need <= join_need and cross_need < p.expand_budget_cap:
-            return sweep_budgets(c0, c0 + sz)
-        return pair_budgets(join_need, "join")
-
-    def run_pair(bi, st):
-        args = (torch.from_numpy(rids_all[bi]).to(dev),
-                torch.from_numpy(qlens_all[bi]).to(dev), candbuf[bi], z10,
-                didx, read_lens_d)
+    with span("zmo.phase2", chunks=len(chunks), chunks_sweep=0) as sp:
+        qkb_z = pad_pow2(max((int(zcnt[rids_all[bi]].sum())
+                              for bi in range(B)), default=1) + Q,
+                         lo=1 << 13)
+        qkb_c = pad_pow2(max((int(comp_len[b].sum()) for b in batches),
+                             default=1) + Q, lo=1 << 13)
+        if p.matcher in ("vtab", "sweep"):
+            qkb = qkb_z
+        elif p.matcher == "join":
+            qkb = qkb_c
+        else:
+            qkb = max(qkb_z, qkb_c)
+        # dense pair-row budget: live pairs <= 2 dirs x live candidate slots
+        pd = pad_pow2(2 * int(sizes[:, 3].max()) + 64, lo=1 << 12)
+        pair_static = dict(
+            Q=Q, Lc=Lc, Adm=Adm, qkb=qkb, nb=p.nb, kvar=p.kvar,
+            zbits=2 * p.zsize, max_per_read=p.max_zmer_freq, xvar=p.xvar,
+            yvar=p.yvar, min_block_len=p.min_block_len,
+            max_overhang=p.max_overhang,
+            deviation_penalty=p.deviation_penalty,
+            gap_penalty=p.gap_penalty, pd=pd, max_len=Ltier,
+        )
         if sw_engine:
-            return _sw_core(*args, flat_d, offs_d, **st)
-        return _pair_pack(*_pair_core(*args, **st))
+            pair_static.update(C=C, Ltier=Ltier, W=p.band_w,
+                               match=p.sw_match, mismatch=p.sw_mismatch,
+                               gap=p.sw_gap)
 
-    batch_static = [None] * B
-    packs_d = []
-    for c0, sz in chunks:
-        bud = chunk_budgets(c0, sz)
-        if progress and p.matcher == "auto":
-            log("chunk %d: matcher=%s mb=%d pb=%d cx=%d", c0, bud["matcher"],
-                bud["mb"], bud["pb"], bud["cx"])
-        for bi in range(c0, c0 + sz):
-            batch_static[bi] = {**pair_static, **bud}
-            packs_d.append(run_pair(bi, batch_static[bi]))
-    packs = torch.stack(packs_d).cpu().numpy()          # sync 3: results
-    csorted_all = torch.stack(candbuf).cpu().numpy()    # sync 4: candidates
-    del packs_d
+        def pair_budgets(zneed, matcher):
+            if zneed > p.expand_budget_cap:
+                log("WARNING: join expansion %d exceeds the memory cap %d; "
+                    "matches will be dropped — lower batch_q", int(zneed),
+                    p.expand_budget_cap)
+            mb = min(pad_pow2(int(zneed) + 1024, lo=1 << 14),
+                     p.expand_budget_cap)
+            pb = min(pad_pow2(int(zneed) * 3 // 4 + 1024, lo=1 << 14), mb)
+            nbk = pad_pow2(max(pb * 3 // 16, 1 << 14))
+            return dict(mb=mb, pb=pb, nbk=nbk, cx=0, matcher=matcher)
+
+        def sweep_budgets(bi_lo, bi_hi):
+            occ = max(int(zcnt[rids_all[bi]].sum())
+                      for bi in range(bi_lo, bi_hi))
+            cxn = max(int(cross[rids_all[bi]].sum())
+                      for bi in range(bi_lo, bi_hi))
+            mb = pad_pow2(occ + Q, lo=1 << 12)
+            cx = min(pad_pow2(cxn + 1024, lo=1 << 14), p.expand_budget_cap)
+            if cxn + 1024 > p.expand_budget_cap:
+                log("WARNING: sweep cross mass %d exceeds the memory cap %d; "
+                    "matches will be dropped — use matcher='auto'", cxn,
+                    p.expand_budget_cap)
+            pb = max(cx // (2 if kavg >= 10 else 4), 1 << 14)
+            return dict(mb=mb, cx=cx, pb=pb, nbk=max(pb // 4, 1 << 14),
+                        matcher="sweep")
+
+        def chunk_budgets(c0, sz):
+            """Pick the matcher for this chunk by exact mass: the sweep's
+            cross axis vs the join's candidate-posting expansion."""
+            if p.matcher == "sweep":
+                return sweep_budgets(c0, c0 + sz)
+            if p.matcher in ("vtab", "join"):
+                return pair_budgets(int(sizes[c0: c0 + sz, 0].max()),
+                                    p.matcher)
+            join_need = int(sizes[c0: c0 + sz, 0].max())
+            cross_need = max(int(cross[rids_all[bi]].sum())
+                             for bi in range(c0, c0 + sz))
+            if cross_need <= join_need and cross_need < p.expand_budget_cap:
+                return sweep_budgets(c0, c0 + sz)
+            return pair_budgets(join_need, "join")
+
+        def run_pair(bi, st):
+            args = (torch.from_numpy(rids_all[bi]).to(dev),
+                    torch.from_numpy(qlens_all[bi]).to(dev), candbuf[bi],
+                    z10, didx, read_lens_d)
+            if sw_engine:
+                return _sw_core(*args, flat_d, offs_d, **st)
+            return _pair_pack(*_pair_core(*args, **st))
+
+        batch_static = [None] * B
+        packs_d = []
+        for c0, sz in chunks:
+            bud = chunk_budgets(c0, sz)
+            sp.counts["chunks_sweep"] += bud["matcher"] == "sweep"
+            if progress and p.matcher == "auto":
+                log("chunk %d: matcher=%s mb=%d pb=%d cx=%d", c0,
+                    bud["matcher"], bud["mb"], bud["pb"], bud["cx"])
+            for bi in range(c0, c0 + sz):
+                batch_static[bi] = {**pair_static, **bud}
+                packs_d.append(run_pair(bi, batch_static[bi]))
+        packs = torch.stack(packs_d).cpu().numpy()        # sync 3: results
+        csorted_all = torch.stack(candbuf).cpu().numpy()  # sync 4: candidates
+        del packs_d
+        # the live pair rows of the batches' dot matrices (packs' last total)
+        sp.counts["pair_rows"] = int(packs[:, -1].sum())
     if progress:
-        log("phase2 done: %.1fs", time.time() - t2)
-        log("stage phase2: %.3fs", time.time() - t2)
-        log("overlap device pipeline: %d batches in %.1fs", B, time.time() - t1)
+        log("stage phase2: %.3fs", sp.seconds)
 
     # ---- overflow redispatch (rare; overflowing budgets grow to fit) ----
-    t3 = time.time()
-    pack_rows = [packs[bi] for bi in range(B)]
-    batch_pd = [pd] * B
-    for bi in range(B):
-        st2 = dict(batch_static[bi])
-        for _attempt in range(4):
-            ptot, etot, btot, rtot = (int(x) for x in pack_rows[bi][-4:])
-            ov = {}
-            exp_key = "cx" if st2.get("matcher") == "sweep" else "mb"
-            if etot > st2[exp_key]:
-                ov[exp_key] = min(pad_pow2(etot + 1024), p.expand_budget_cap)
-                if ov[exp_key] <= st2[exp_key]:
-                    log("WARNING: batch %d expansion %d exceeds the memory "
-                        "cap %d; matches dropped", bi, etot,
-                        p.expand_budget_cap)
-                    ov.pop(exp_key)
-            if ptot > st2["pb"]:
-                ov["pb"] = pad_pow2(ptot + 1024)
-            # blocks past nbk were dropped (the segment reduce reports
-            # them in its count)
-            if btot > st2["nbk"]:
-                ov["nbk"] = pad_pow2(btot + 4096)
-                if ov["nbk"] <= st2["nbk"]:
-                    ov.pop("nbk")
-            # live rows are at most 2 per live candidate slot, and pd is
-            # sized from that count, so no batch can exceed pd; the JAX
-            # package checks it for the dm engine only, and so does this
-            if not sw_engine and rtot > st2["pd"]:
-                ov["pd"] = pad_pow2(rtot + 64)
-            if not ov:
-                break
-            st2.update(ov)
-            log("budget overflow batch %d (pair %d expand %d blk %d rows %d):"
-                " redispatch", bi, ptot, etot, btot, rtot)
-            pack_rows[bi] = run_pair(bi, st2).cpu().numpy()
-            batch_pd[bi] = st2.get("pd", pd)
+    with span("zmo.redispatch", redispatched=0, attempts=0) as sp:
+        pack_rows = [packs[bi] for bi in range(B)]
+        batch_pd = [pd] * B
+        for bi in range(B):
+            st2 = dict(batch_static[bi])
+            for _attempt in range(4):
+                sp.counts["attempts"] += 1
+                ptot, etot, btot, rtot = (int(x) for x in pack_rows[bi][-4:])
+                ov = {}
+                exp_key = "cx" if st2.get("matcher") == "sweep" else "mb"
+                if etot > st2[exp_key]:
+                    ov[exp_key] = min(pad_pow2(etot + 1024),
+                                      p.expand_budget_cap)
+                    if ov[exp_key] <= st2[exp_key]:
+                        log("WARNING: batch %d expansion %d exceeds the "
+                            "memory cap %d; matches dropped", bi, etot,
+                            p.expand_budget_cap)
+                        ov.pop(exp_key)
+                if ptot > st2["pb"]:
+                    ov["pb"] = pad_pow2(ptot + 1024)
+                # blocks past nbk were dropped (the segment reduce reports
+                # them in its count)
+                if btot > st2["nbk"]:
+                    ov["nbk"] = pad_pow2(btot + 4096)
+                    if ov["nbk"] <= st2["nbk"]:
+                        ov.pop("nbk")
+                # live rows are at most 2 per live candidate slot, and pd
+                # is sized from that count, so no batch can exceed pd; the
+                # JAX package checks it for the dm engine only, and so does
+                # this
+                if not sw_engine and rtot > st2["pd"]:
+                    ov["pd"] = pad_pow2(rtot + 64)
+                if not ov:
+                    break
+                st2.update(ov)
+                log("budget overflow batch %d (pair %d expand %d blk %d rows "
+                    "%d): redispatch", bi, ptot, etot, btot, rtot)
+                sp.counts["redispatched"] += 1
+                pack_rows[bi] = run_pair(bi, st2).cpu().numpy()
+                batch_pd[bi] = st2.get("pd", pd)
     if progress:
-        log("overflow checks done: %.1fs", time.time() - t0)
-        log("stage redispatch: %.3fs", time.time() - t3)
+        log("stage redispatch: %.3fs", sp.seconds)
+        if sp.counts["redispatched"]:
+            log("redispatched %d of %d overflow checks",
+                sp.counts["redispatched"], sp.counts["attempts"])
 
     # ---- host emission (sequential reference semantics) ----
-    t4 = time.time()
-    overlaps: list[Overlap] = []
-    emitted_pairs: set[tuple[int, int]] = set()
-    pre_pairs: set[tuple[int, int]] = set()
-    if preattempted:
-        for n1, n2 in preattempted:
-            i1 = rb.name2id.get(n1)
-            i2 = rb.name2id.get(n2)
-            if i1 is None or i2 is None:
-                continue
-            pre_pairs.add((min(i1, i2), max(i1, i2)))
-    rdcovs = np.zeros(n, np.int64)
-    rdmask = np.zeros(n, bool)
-    avg_len = rb.avg_len()
-    # the SW emission's CIGARs run here, on `device`, batch by batch as
-    # _emit_batch_sw would attach them (p_emit has emit_cigar off)
-    p_emit = dataclasses.replace(p, emit_cigar=False)
-    t_cig = 0.0
-    cig_split: dict = {}
-    for bi in range(B):
-        csorted = csorted_all[bi].reshape(Q, Adm)
-        if sw_engine:
-            n0 = len(overlaps)
-            _emit_batch_sw(rb, p_emit, rids_all[bi], pack_rows[bi], csorted,
-                           Q, Adm, C, rdcovs, rdmask, overlaps, emitted_pairs,
-                           pre_pairs, attempted_out, avg_len)
-            if p.emit_cigar and len(overlaps) > n0:
-                tc = time.time()
-                _attach_cigars(rb, p, overlaps[n0:], device=dev,
-                               split=cig_split)
-                t_cig += time.time() - tc
-        else:
-            _emit_batch_dm(rb, p, rids_all[bi], pack_rows[bi], csorted, Q,
-                           Adm, rdcovs, rdmask, overlaps, emitted_pairs,
-                           pre_pairs, attempted_out, avg_len, pd=batch_pd[bi])
+    with span("zmo.emission") as sp:
+        overlaps: list[Overlap] = []
+        emitted_pairs: set[tuple[int, int]] = set()
+        pre_pairs: set[tuple[int, int]] = set()
+        if preattempted:
+            for n1, n2 in preattempted:
+                i1 = rb.name2id.get(n1)
+                i2 = rb.name2id.get(n2)
+                if i1 is None or i2 is None:
+                    continue
+                pre_pairs.add((min(i1, i2), max(i1, i2)))
+        rdcovs = np.zeros(n, np.int64)
+        rdmask = np.zeros(n, bool)
+        avg_len = rb.avg_len()
+        # the SW emission's CIGARs run here, on `device`, batch by batch as
+        # _emit_batch_sw would attach them (p_emit has emit_cigar off)
+        p_emit = dataclasses.replace(p, emit_cigar=False)
+        t_cig = 0
+        cig_split: dict = {}
+        for bi in range(B):
+            csorted = csorted_all[bi].reshape(Q, Adm)
+            if sw_engine:
+                n0 = len(overlaps)
+                _emit_batch_sw(rb, p_emit, rids_all[bi], pack_rows[bi],
+                               csorted, Q, Adm, C, rdcovs, rdmask, overlaps,
+                               emitted_pairs, pre_pairs, attempted_out,
+                               avg_len)
+                if p.emit_cigar and len(overlaps) > n0:
+                    tc = now()
+                    _attach_cigars(rb, p, overlaps[n0:], device=dev,
+                                   split=cig_split)
+                    t_cig += now() - tc
+            else:
+                _emit_batch_dm(rb, p, rids_all[bi], pack_rows[bi], csorted, Q,
+                               Adm, rdcovs, rdmask, overlaps, emitted_pairs,
+                               pre_pairs, attempted_out, avg_len,
+                               pd=batch_pd[bi])
+        sp.counts["records"] = len(overlaps)
     if progress:
-        log("stage emission: %.3fs", time.time() - t4 - t_cig)
+        log("stage emission: %.3fs", sp.seconds - t_cig / 1e9)
         if sw_engine and p.emit_cigar:
-            log("stage cigars: %.3fs", t_cig)
+            log("stage cigars: %.3fs", t_cig / 1e9)
             log("cigars split: %s", " ".join(
                 f"{k} {v:.3f}s" for k, v in sorted(cig_split.items())))
-        log("overlap done: %d overlaps in %.1fs", len(overlaps), time.time() - t0)
+        log("overlap done: %d overlaps in %.1fs", len(overlaps),
+            sp_pass.seconds)
     return overlaps
 
 
