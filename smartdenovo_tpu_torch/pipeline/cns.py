@@ -9,7 +9,8 @@ Per unitig: backbone = offset-concatenation of the layout's Y reads; then
        device), cut every read into SEGR-row segments, align them all
        against their consensus windows, Bc segments per call of
        `ops.segdp.seg_align_tb` (csrc/segdp.cu on the card), and stitch
-       each read's segment alignments on the host;
+       each read's segment alignments on the host, a round in one call of
+       native/stitch.cpp;
      - the whole-read engine (units with f5q quality tracks, or
        `seg_engine=False`): probe-anchor batches of whole reads, align
        each batch along its anchor band with `ops.banded.banded_align`
@@ -37,7 +38,7 @@ import torch
 
 from ..data.readbank import codes_to_seq, revcomp_codes
 from ..utils.log import log
-from ..utils.native import DagCns
+from ..utils.native import RESEED, STITCHED, DagCns, stitch_round
 
 from ..ops.banded import (align_strings, banded_align, make_band_centers,
                           traceback_banded)
@@ -600,10 +601,45 @@ def _seg_align_pass(unit: LayUnitig, st: _SegState, offs, cns,
         n_disp, Bc, sp.seconds)
     # stitched to a list, so that the span holds the stitcher alone and
     # not the caller's work on each read
-    with span("cns.stitch"):
-        stitched = list(_stitch_reads(unit, st, spans, arr, b_beg, mv_all,
-                                      cns_pad, Lc, p, open_i, open_d))
+    with span("cns.stitch") as sp_stitch:
+        stitched = _stitch_native(unit, st, spans, arr, b_beg, mv_all,
+                                  cns_pad, Lc, p, open_i, open_d,
+                                  sp_stitch.counts)
     yield from stitched
+
+
+def _stitch_native(unit: LayUnitig, st: _SegState, spans, arr, b_beg, mv_all,
+                   cns_pad, Lc, p: CnsParams, open_i, open_d,
+                   counts: dict | None = None) -> list:
+    """`_stitch_reads` (the plain version, which the tests hold this one
+    to) in one call of native/stitch.cpp: the same reads (ra, rb views
+    into two flat buffers), column maps, reseeds and fallback line, as a
+    list.  counts, where given, gets the stitched reads, the reseeded ones
+    and the fallbacks."""
+    first = np.array([f for f, _, _ in spans], np.int64)
+    nseg = np.array([S for _, S, _ in spans], np.int64)
+    r0 = np.zeros(len(arr), np.int64)
+    for f, S, r0s in spans:
+        r0[f: f + S] = r0s
+    o = stitch_round(first, nseg, r0, mv_all, arr, b_beg, st.flat,
+                     st.flat_offs, st.lens, cns_pad, Lc, p.match, p.mismatch,
+                     open_i, open_d, p.refine_ext)
+    reseeded = np.nonzero(o.status == RESEED)[0].tolist()
+    for rid in reseeded:
+        st.colmap16[rid] = None
+    out = []
+    for rid in np.nonzero(o.status == STITCHED)[0].tolist():
+        a0, a1 = o.aln_offs[rid], o.aln_offs[rid + 1]
+        st.colmap16[rid] = o.cm[o.cm_offs[rid]: o.cm_offs[rid + 1]]
+        out.append((rid, int(o.sc[rid]), int(o.beg[rid]), int(o.end[rid]),
+                    o.ra[a0:a1], o.rb[a0:a1]))
+    if o.fallbacks:
+        log("cns %s: %d stitch fallbacks (no shared column in overlap)",
+            unit.name, o.fallbacks)
+    if counts is not None:
+        counts.update(reads=len(out), reseeded=len(reseeded),
+                      fallbacks=o.fallbacks)
+    return out
 
 
 def _stitch_reads(unit: LayUnitig, st: _SegState, spans, arr, b_beg, mv_all,

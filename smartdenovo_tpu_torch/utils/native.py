@@ -2,7 +2,8 @@
 
 The DAG consensus engine (native/dagcns.cpp) and wtmsa's POA engine
 (native/poa.cpp) are plain C++ called through ctypes; this package keeps
-its own copies of their sources in ``smartdenovo_tpu_torch/native/``.
+its own copies of their sources in ``smartdenovo_tpu_torch/native/``,
+beside its own segment stitcher (native/stitch.cpp).
 Each is compiled with g++ at first use into ``smartdenovo_tpu_torch/_build/``
 (listed in .gitignore), under a name keyed by a hash of the source and the
 flags, so an edited source rebuilds and nothing is written beside the
@@ -12,6 +13,7 @@ sources.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import subprocess
@@ -166,3 +168,96 @@ class PoaCns:
         out = np.zeros(cap, np.uint8)
         n = self._lib.poa_consensus(self._h, self._u8(out), cap)
         return out[:n].copy()
+
+
+STITCHED, RESEED, SKIPPED = 0, 1, 2
+
+
+def _stitch_lib() -> ctypes.CDLL:
+    lib = build_and_load("stitch")
+    i64, p64 = ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)
+    p8 = ctypes.POINTER(ctypes.c_uint8)
+    lib.stitch_run.restype = ctypes.c_void_p
+    lib.stitch_run.argtypes = [
+        i64, p64, p64, p64, p8, i64, i64, i64, i64, p64, p64, p8, i64, p64,
+        p64, p8, *[i64] * 6, *[p64] * 6]
+    lib.stitch_fetch.argtypes = [ctypes.c_void_p, p64, p8, p8, p64]
+    lib.stitch_free.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+@dataclasses.dataclass
+class Stitched:
+    """A round's stitched reads: per read a status (STITCHED, RESEED: its
+    column map is to be seeded again, SKIPPED: no segments) and, for a
+    stitched one, its score, consensus span [beg, end), aligned rows
+    ra[aln_offs[i]:aln_offs[i + 1]] (read) and rb (consensus), 4 = gap,
+    and column map cm[cm_offs[i]:cm_offs[i + 1]]; `fallbacks` counts the
+    junctions cut where the two segments share no column."""
+
+    status: np.ndarray
+    sc: np.ndarray
+    beg: np.ndarray
+    end: np.ndarray
+    aln_offs: np.ndarray
+    ra: np.ndarray
+    rb: np.ndarray
+    cm_offs: np.ndarray
+    cm: np.ndarray
+    fallbacks: int
+
+
+def _p64(x: np.ndarray):
+    return x.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def _p8(x: np.ndarray):
+    return x.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def stitch_round(first, nseg, r0, mv_all, arr, b_beg, flat, flat_offs, lens,
+                 cns_pad, Lc: int, match: int, mismatch: int, open_i: int,
+                 open_d: int, ext: int) -> Stitched:
+    """native/stitch.cpp over one round of the segment engine.
+
+    Read i's segments are rows first[i] .. first[i] + nseg[i] - 1 of r0
+    [Np] (first read row), mv_all [Np, T] u8 (backward 2-bit move streams,
+    3 = padding), arr [Np, 5] (rid, r0, alen, w0, blen) and b_beg [Np];
+    flat / flat_offs / lens hold the reads' codes, cns_pad the consensus
+    (Lc bases, then padding).  Raises IndexError where the plain stitcher
+    would index out of an array."""
+    first, nseg, r0, arr, b_beg, flat_offs, lens = (
+        np.ascontiguousarray(x, np.int64)
+        for x in (first, nseg, r0, arr, b_beg, flat_offs, lens))
+    flat = np.ascontiguousarray(flat, np.uint8)
+    cns_pad = np.ascontiguousarray(cns_pad, np.uint8)
+    if mv_all.dtype != np.uint8 or mv_all.ndim != 2:
+        raise ValueError("stitch_round: mv_all must be a 2-D uint8 array")
+    n, (Np, T) = len(first), mv_all.shape
+    if (len(nseg) != n or len(lens) < n or len(flat_offs) < n
+            or r0.shape != (Np,) or arr.shape != (Np, 5)
+            or b_beg.shape != (Np,)):
+        raise ValueError("stitch_round: array shapes do not agree")
+    if not 0 < Lc <= len(cns_pad):
+        raise ValueError(f"stitch_round: Lc {Lc} outside the consensus buffer")
+    status, sc, beg, end = (np.zeros(n, np.int64) for _ in range(4))
+    aln_offs, cm_offs = np.zeros(n + 1, np.int64), np.zeros(n + 1, np.int64)
+    counts = np.zeros(1, np.int64)
+    lib = _stitch_lib()
+    h = lib.stitch_run(
+        n, _p64(first), _p64(nseg), _p64(r0), _p8(mv_all), Np, T,
+        mv_all.strides[0], mv_all.strides[1], _p64(arr), _p64(b_beg),
+        _p8(flat), len(flat), _p64(flat_offs), _p64(lens), _p8(cns_pad), Lc,
+        match, mismatch, open_i, open_d, ext, _p64(status), _p64(beg),
+        _p64(end), _p64(aln_offs), _p64(cm_offs), _p64(counts))
+    if not h:
+        raise IndexError("stitch_round: an index runs out of its array")
+    try:
+        ra = np.empty(int(aln_offs[-1]), np.uint8)
+        rb = np.empty(int(aln_offs[-1]), np.uint8)
+        cm = np.empty(int(cm_offs[-1]), np.int64)
+        lib.stitch_fetch(h, _p64(sc), _p8(ra), _p8(rb), _p64(cm))
+    finally:
+        lib.stitch_free(h)
+    return Stitched(status, sc, beg, end, aln_offs, ra, rb, cm_offs, cm,
+                    int(counts[0]))

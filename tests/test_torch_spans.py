@@ -274,6 +274,51 @@ def test_redispatches_are_counted(monkeypatch):
     assert em.counts["records"] == len(out)
 
 
+def test_stitch_span_counts_the_plain_stitchers_outcome(monkeypatch):
+    """Each round's `cns.stitch` span on the 12 kb unit of tests/test_cns.py
+    counts what the plain stitcher makes of the same inputs: the reads it
+    yields, those with segments it yields not (their column maps dropped
+    for reseeding) and its fallbacks."""
+    import copy
+
+    from smartdenovo_tpu_torch.pipeline import cns
+    from test_torch_cuda import unit_12kb
+
+    expected = []
+    real = cns._stitch_native
+
+    def both(unit, st, spans_, arr, b_beg, mv_all, cns_pad, Lc, p, oi, od,
+             counts=None):
+        plain = copy.copy(st)
+        plain.colmap16 = list(st.colmap16)
+        lines = []
+        with monkeypatch.context() as m:
+            m.setattr(cns, "log", lambda f, *a: lines.append(f % a))
+            out = list(cns._stitch_reads(unit, plain, spans_, arr, b_beg,
+                                         mv_all, cns_pad, Lc, p, oi, od))
+        yielded = {r[0] for r in out}
+        expected.append(dict(
+            reads=len(out),
+            reseeded=sum(sp[1] > 0 and i not in yielded
+                         for i, sp in enumerate(spans_)),
+            fallbacks=int(lines[0].split()[2]) if lines else 0))
+        return real(unit, st, spans_, arr, b_beg, mv_all, cns_pad, Lc, p,
+                    oi, od, counts)
+
+    monkeypatch.setattr(cns, "_stitch_native", both)
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        cns.consensus_unitig(unit_12kb(), cns.CnsParams(n_iter=2),
+                             device="cpu")
+    finally:
+        torch.set_num_threads(n)
+    got = [s.counts for s in timing.RECORDER.spans
+           if s.name == "cns.stitch"][-2:]
+    assert got == expected and len(expected) == 2
+    assert all(c["reads"] > 20 for c in got)
+
+
 # ------------------------------------------------ hand-made trace and spans
 
 
