@@ -32,7 +32,7 @@ import torch
 
 from ..data.readbank import ReadBank
 from ..utils.log import log
-from ..utils.timing import now, span, timed
+from ..utils.timing import span, timed
 
 from ..ops.banded import (align_strings, banded_align, make_band_centers,
                           traceback_banded)
@@ -267,7 +267,12 @@ def _sw_core(rids, qlens, csorted, z10, didx, read_lens, flat_bases,
     """SW-engine batch: the dot-matrix chains, then the banded local DP of
     each query's top C chains.  Returns the batch's int32 pack row (cand,
     dir, chain score, score, mat, beg_a, end_a, beg_b, end_b, [Q*C] each,
-    then the four budget totals), the JAX package's layout."""
+    then the four budget totals), the JAX package's layout.
+
+    The DP call is the span `zmo.swdp` (count `pairs`, its B), from the
+    dot matrix's end to the DP's end: the device is waited for on both
+    sides, where the DP's own duplicate check and the next batch's upload
+    would wait for it anyway."""
     res, totals = _pair_core(rids, qlens, csorted, z10, didx, read_lens, **st)
     # the query batch from the flat bank on the device
     dev = rids.device
@@ -278,14 +283,23 @@ def _sw_core(rids, qlens, csorted, z10, didx, read_lens, flat_bases,
     qbatch = torch.where(
         inb, flat_bases[pos.clamp(0, flat_bases.shape[0] - 1).long()],
         torch.tensor(4, dtype=torch.uint8, device=dev))
-    sw = sw_align_batch(
-        res.pair_id, res.score, res.tb, res.te, res.qb, res.qe,
-        csorted, qbatch, qlens, flat_bases, read_offs, read_lens,
-        Q=st["Q"], A=st["Adm"], C=C, Ltier=Ltier, W=W,
-        match=match, mismatch=mismatch, gap=gap,
-    )
+    _settle(dev)
+    with span("zmo.swdp", pairs=2 * st["Q"] * C):
+        sw = sw_align_batch(
+            res.pair_id, res.score, res.tb, res.te, res.qb, res.qe,
+            csorted, qbatch, qlens, flat_bases, read_offs, read_lens,
+            Q=st["Q"], A=st["Adm"], C=C, Ltier=Ltier, W=W,
+            match=match, mismatch=mismatch, gap=gap,
+        )
+        _settle(dev)
     return torch.cat([sw.cand, sw.dir, sw.chain_score, sw.score, sw.mat,
                       sw.beg_a, sw.end_a, sw.beg_b, sw.end_b, totals])
+
+
+def _settle(dev: torch.device):
+    """Wait for the work queued on `dev` (nothing to wait for on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -603,7 +617,7 @@ def _dm_pass(rb, p, dev, progress, preattempted, attempted_out, parts,
         # the SW emission's CIGARs run here, on `device`, batch by batch as
         # _emit_batch_sw would attach them (p_emit has emit_cigar off)
         p_emit = dataclasses.replace(p, emit_cigar=False)
-        t_cig = 0
+        t_cig = 0.0
         cig_split: dict = {}
         for bi in range(B):
             csorted = csorted_all[bi].reshape(Q, Adm)
@@ -614,10 +628,8 @@ def _dm_pass(rb, p, dev, progress, preattempted, attempted_out, parts,
                                emitted_pairs, pre_pairs, attempted_out,
                                avg_len)
                 if p.emit_cigar and len(overlaps) > n0:
-                    tc = now()
-                    _attach_cigars(rb, p, overlaps[n0:], device=dev,
-                                   split=cig_split)
-                    t_cig += now() - tc
+                    t_cig += _attach_cigars(rb, p, overlaps[n0:], device=dev,
+                                            split=cig_split).seconds
             else:
                 _emit_batch_dm(rb, p, rids_all[bi], pack_rows[bi], csorted, Q,
                                Adm, rdcovs, rdmask, overlaps, emitted_pairs,
@@ -625,9 +637,9 @@ def _dm_pass(rb, p, dev, progress, preattempted, attempted_out, parts,
                                pd=batch_pd[bi])
         sp.counts["records"] = len(overlaps)
     if progress:
-        log("stage emission: %.3fs", sp.seconds - t_cig / 1e9)
+        log("stage emission: %.3fs", sp.seconds - t_cig)
         if sw_engine and p.emit_cigar:
-            log("stage cigars: %.3fs", t_cig / 1e9)
+            log("stage cigars: %.3fs", t_cig)
             log("cigars split: %s", " ".join(
                 f"{k} {v:.3f}s" for k, v in sorted(cig_split.items())))
         log("overlap done: %d overlaps in %.1fs", len(overlaps),
@@ -880,13 +892,22 @@ def _attach_cigars(rb, p, ovls, *, device="cuda", split: dict | None = None):
     depends on the group.  split: a dict the host seconds of the parts
     are added to: segs, centers (band construction), banded (the kernel
     with its fetch), banded_rle, with -n refine's band, refine and rle, and
-    strings (align_strings and the counts)."""
+    strings (align_strings and the counts).
+
+    Returns its span, `zmo.cigars`, the parent of those parts' spans, with
+    the counts `overlaps` (records given a CIGAR), `calls` (`banded_align`
+    launches) and `cells` (their band cells, sum of alen x W)."""
+    with span("zmo.cigars", overlaps=0, calls=0, cells=0) as sp:
+        if ovls:
+            _cigar_calls(rb, p, ovls, torch.device(device), split, sp.counts)
+    return sp
+
+
+def _cigar_calls(rb, p, ovls, dev, split, tally):
+    """`_attach_cigars`' work, its counts added to `tally`."""
     from ..data.readbank import revcomp_codes
     from ..ops.refine import refine_alignment_batch
 
-    if not ovls:
-        return
-    dev = torch.device(device)
     segs = []
     with timed(split, "segs"):
         for ov in ovls:
@@ -913,6 +934,8 @@ def _attach_cigars(rb, p, ovls, *, device="cuda", split: dict | None = None):
                 b[k, : len(cb)] = cb
                 anchors.append([(0, 0), (len(qa), len(cb))])
             base = make_band_centers(anchors, alen[idx], blen[idx], LA, W)
+        tally["calls"] += 1
+        tally["cells"] += int(alen[idx].sum()) * W
         with timed(split, "banded"):
             _score, ecol, dirs, mvs, j_final = banded_align(
                 *(torch.from_numpy(x).to(dev)
@@ -945,16 +968,20 @@ def _attach_cigars(rb, p, ovls, *, device="cuda", split: dict | None = None):
                 ext=-1, device=dev, split=split)):
             cigs[i] = (r["ops"], r["counts"])
     with timed(split, "strings"):
-        _cigar_stats(segs, cigs, b_begs, ovls)
+        tally["overlaps"] += _cigar_stats(segs, cigs, b_begs, ovls)
 
 
-def _cigar_stats(segs, cigs, b_begs, ovls):
+def _cigar_stats(segs, cigs, b_begs, ovls) -> int:
     """Each overlap's CIGAR, aln, mat/mis/ins/dl and identity from its
-    alignment, as the JAX package's `_attach_cigars` sets them."""
+    alignment, as the JAX package's `_attach_cigars` sets them; returns
+    how many overlaps were given one (an empty traceback leaves its
+    overlap as it was)."""
+    given = 0
     for i, ov in enumerate(ovls):
         ops, counts = cigs[i]
         if not ops:
             continue
+        given += 1
         ra, rb_ = align_strings(segs[i][0], segs[i][1][int(b_begs[i]):],
                                 ops, counts)
         both = (ra != 4) & (rb_ != 4)
@@ -965,6 +992,7 @@ def _cigar_stats(segs, cigs, b_begs, ovls):
         ov.aln = int(ra.shape[0])
         ov.identity = ov.mat / max(1, ov.aln)
         ov.cigar = "".join(f"{int(c)}{o}" for o, c in zip(ops, counts))
+    return given
 
 
 def overlap_reads(rb: ReadBank, params: ZmoParams | None = None,
