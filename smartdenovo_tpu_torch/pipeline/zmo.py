@@ -32,10 +32,10 @@ import torch
 
 from ..data.readbank import ReadBank
 from ..utils.log import log
+from ..utils.native import cigar_band, cigar_rle, cigar_segments, cigar_strings
 from ..utils.timing import span, timed
 
-from ..ops.banded import (align_strings, banded_align, make_band_centers,
-                          traceback_banded)
+from ..ops.banded import align_strings, banded_align
 from ..ops.candidates import scan_candidates
 from ..ops.dotmatrix import (dot_matrix_align, extract_zmer_pairs_join,
                              extract_zmer_pairs_sweep,
@@ -889,10 +889,14 @@ def _attach_cigars(rb, p, ovls, *, device="cuda", split: dict | None = None):
     direction plane (`_cigar_chunks`): a short overlap is not padded to
     the batch's longest.  With p.refine (-n) the refine pass takes the
     batch's pairs in one group, as in the JAX package: its band width
-    depends on the group.  split: a dict the host seconds of the parts
-    are added to: segs, centers (band construction), banded (the kernel
-    with its fetch), banded_rle, with -n refine's band, refine and rle, and
-    strings (align_strings and the counts).
+    depends on the group.  The host parts are batched calls of
+    native/cigars.cpp (utils/native.py), equal to the plain helpers
+    make_band_centers, traceback_banded and `_cigar_stats`.  split: a
+    dict the host seconds of the parts are added to: segs, centers (the
+    padded inputs and the bands), banded (the kernel with its fetch),
+    banded_rle (the run-length encoding, its span counting the
+    `overlaps` it decoded), with -n refine's band, refine and rle, and
+    strings (the counts and the CIGAR text).
 
     Returns its span, `zmo.cigars`, the parent of those parts' spans, with
     the counts `overlaps` (records given a CIGAR), `calls` (`banded_align`
@@ -903,79 +907,103 @@ def _attach_cigars(rb, p, ovls, *, device="cuda", split: dict | None = None):
     return sp
 
 
+_OPS = "MID"
+
+
 def _cigar_calls(rb, p, ovls, dev, split, tally):
     """`_attach_cigars`' work, its counts added to `tally`."""
-    from ..data.readbank import revcomp_codes
-    from ..ops.refine import refine_alignment_batch
-
-    segs = []
     with timed(split, "segs"):
-        for ov in ovls:
-            qa = rb.get(ov.rid1)[ov.beg1:ov.end1]
-            cb = rb.get(ov.rid2)
-            if ov.dir2:
-                cb = revcomp_codes(cb)
-            segs.append((qa, cb[ov.beg2:ov.end2]))
-    B = len(segs)
-    alen = np.array([len(x) for x, _ in segs], np.int32)
-    blen = np.array([len(y) for _, y in segs], np.int32)
+        segs = cigar_segments(rb.bases, rb.offsets, [
+            (o.rid1, o.beg1, o.end1, o.rid2, o.dir2, o.beg2, o.end2)
+            for o in ovls])
+    B = len(ovls)
+    alen, blen = segs.alen, segs.blen
     W = p.band_w
-    cigs, b_begs = [None] * B, np.zeros(B, np.int64)
-    end_col = np.zeros(B, np.int64)
+    b_begs, end_col = np.zeros(B, np.int64), np.zeros(B, np.int64)
+    # overlap i's runs: ops/counts[run_beg[i]:run_end[i]] of the parts
+    # concatenated
+    run_beg, run_end = np.zeros(B, np.int64), np.zeros(B, np.int64)
+    ops, counts, nrun = [], [], 0
     for idx, LA in _cigar_chunks(alen, W):
-        n = len(idx)
         with timed(split, "centers"):
-            a = np.full((n, LA), 4, np.uint8)
-            b = np.full((n, max(int(blen[idx].max()), 1)), 4, np.uint8)
-            anchors = []
-            for k, i in enumerate(idx):
-                qa, cb = segs[i]
-                a[k, : len(qa)] = qa
-                b[k, : len(cb)] = cb
-                anchors.append([(0, 0), (len(qa), len(cb))])
-            base = make_band_centers(anchors, alen[idx], blen[idx], LA, W)
+            a, b, base = cigar_band(segs, idx, LA, W)
         tally["calls"] += 1
         tally["cells"] += int(alen[idx].sum()) * W
         with timed(split, "banded"):
             _score, ecol, dirs, mvs, j_final = banded_align(
                 *(torch.from_numpy(x).to(dev)
-                  for x in (a, b, alen[idx], blen[idx], base)),
+                  for x in (a, b, alen[idx].astype(np.int32),
+                            blen[idx].astype(np.int32), base)),
                 LA=LA, W=W, match=p.sw_match, mismatch=p.sw_mismatch,
                 gap=p.sw_gap, semiglobal_b=True)
             del dirs
-            mvs, j_final, ecol = (t.cpu().numpy() for t in (mvs, j_final, ecol))
-        with timed(split, "banded_rle"):
-            cg, bb = traceback_banded(mvs, j_final)
-        for k, i in enumerate(idx):
-            cigs[i] = cg[k]
-        b_begs[idx] = bb
+            # a row an overlap, so the host reads each one's moves in order
+            mvs, j_final, ecol = (t.cpu().numpy() for t in (
+                mvs.t().contiguous(), j_final, ecol))
+        with timed(split, "banded_rle", overlaps=len(idx)):
+            g_ops, g_counts, offs, b_begs[idx] = cigar_rle(mvs, j_final)
+            run_beg[idx] = nrun + offs[:-1]
+            run_end[idx] = nrun + offs[1:]
+            ops.append(g_ops)
+            counts.append(g_counts)
+            nrun += len(g_ops)
         end_col[idx] = ecol
     if p.refine:
-        # reference -n: kswx_refine_alignment around each hit's CIGAR
-        # (wtzmo.c:1031-1033), canonical affine gap placement
-        rpairs, rcigs, rmap = [], [], []
-        for i in range(B):
-            ops, counts = cigs[i]
-            seg_b = segs[i][1][int(b_begs[i]): int(end_col[i])]
-            if not ops or seg_b.size == 0 or int(alen[i]) == 0:
-                continue
-            rpairs.append((segs[i][0], seg_b))
-            rcigs.append((ops, counts))
-            rmap.append(i)
-        for i, r in zip(rmap, refine_alignment_batch(
-                rpairs, rcigs, W_base=64, match=p.sw_match,
-                mismatch=p.sw_mismatch, open_i=p.sw_gap, open_d=p.sw_gap,
-                ext=-1, device=dev, split=split)):
-            cigs[i] = (r["ops"], r["counts"])
+        _refine_runs(p, segs, b_begs, end_col, run_beg, run_end, ops, counts,
+                     dev, split)
     with timed(split, "strings"):
-        tally["overlaps"] += _cigar_stats(segs, cigs, b_begs, ovls)
+        stats, text_offs, text = cigar_strings(
+            segs, b_begs, run_beg, run_end, np.concatenate(ops),
+            np.concatenate(counts))
+        given = np.flatnonzero(run_end > run_beg)
+        text = text.tobytes().decode("ascii")
+        offs = text_offs.tolist()
+        for i, (m, x, ins, dl, aln) in zip(given.tolist(),
+                                           stats[given].tolist()):
+            ov = ovls[i]
+            ov.mat, ov.mis, ov.ins, ov.dl, ov.aln = m, x, ins, dl, aln
+            ov.identity = m / max(1, aln)
+            ov.cigar = text[offs[i]:offs[i + 1]]
+        tally["overlaps"] += len(given)
+
+
+def _refine_runs(p, segs, b_begs, end_col, run_beg, run_end, ops, counts,
+                 dev, split):
+    """Reference -n: kswx_refine_alignment around each hit's CIGAR
+    (wtzmo.c:1031-1033), canonical affine gap placement.  The refined
+    runs are appended to the parts ops/counts and run_beg/run_end point
+    at them."""
+    from ..ops.refine import refine_alignment_batch
+
+    all_ops, all_counts = np.concatenate(ops), np.concatenate(counts)
+    nrun = len(all_ops)
+    rpairs, rcigs, rmap = [], [], []
+    for i in range(len(run_beg)):
+        r0, r1 = int(run_beg[i]), int(run_end[i])
+        seg_b = segs.cand(i)[int(b_begs[i]): int(end_col[i])]
+        if r1 == r0 or seg_b.size == 0 or int(segs.alen[i]) == 0:
+            continue
+        rpairs.append((segs.query(i), seg_b))
+        rcigs.append(([_OPS[o] for o in all_ops[r0:r1].tolist()],
+                      all_counts[r0:r1].tolist()))
+        rmap.append(i)
+    for i, r in zip(rmap, refine_alignment_batch(
+            rpairs, rcigs, W_base=64, match=p.sw_match,
+            mismatch=p.sw_mismatch, open_i=p.sw_gap, open_d=p.sw_gap,
+            ext=-1, device=dev, split=split)):
+        ops.append(np.array([_OPS.index(o) for o in r["ops"]], np.uint8))
+        counts.append(np.array(r["counts"], np.int32))
+        run_beg[i] = nrun
+        nrun += len(r["ops"])
+        run_end[i] = nrun
 
 
 def _cigar_stats(segs, cigs, b_begs, ovls) -> int:
     """Each overlap's CIGAR, aln, mat/mis/ins/dl and identity from its
     alignment, as the JAX package's `_attach_cigars` sets them; returns
     how many overlaps were given one (an empty traceback leaves its
-    overlap as it was)."""
+    overlap as it was).  The plain version, which the tests hold
+    native/cigars.cpp's `cig_strings` to."""
     given = 0
     for i, ov in enumerate(ovls):
         ops, counts = cigs[i]

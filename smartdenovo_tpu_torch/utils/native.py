@@ -3,7 +3,8 @@
 The DAG consensus engine (native/dagcns.cpp) and wtmsa's POA engine
 (native/poa.cpp) are plain C++ called through ctypes; this package keeps
 its own copies of their sources in ``smartdenovo_tpu_torch/native/``,
-beside its own segment stitcher (native/stitch.cpp).
+beside its own segment stitcher (native/stitch.cpp) and the SW engine's
+CIGAR stage (native/cigars.cpp).
 Each is compiled with g++ at first use into ``smartdenovo_tpu_torch/_build/``
 (listed in .gitignore), under a name keyed by a hash of the source and the
 flags, so an edited source rebuilds and nothing is written beside the
@@ -261,3 +262,196 @@ def stitch_round(first, nseg, r0, mv_all, arr, b_beg, flat, flat_offs, lens,
         lib.stitch_free(h)
     return Stitched(status, sc, beg, end, aln_offs, ra, rb, cm_offs, cm,
                     int(counts[0]))
+
+
+# ---------------------------------------------------------------------------
+# native/cigars.cpp: the SW (zmo) engine's CIGAR stage, a batch at a time
+# ---------------------------------------------------------------------------
+
+_CIG_ERRORS = {1: (IndexError, "an index runs out of its array"),
+               2: (ValueError, "a move or op code out of range"),
+               3: (ValueError, "a count out of range")}
+
+
+def _cig_check(name: str, err: int):
+    if err:
+        kind, what = _CIG_ERRORS[err]
+        raise kind(f"{name}: {what}")
+
+
+def _cigars_lib() -> ctypes.CDLL:
+    lib = build_and_load("cigars")
+    i64, p64 = ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)
+    p8, p32 = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32)
+    lib.cig_segs.restype = ctypes.c_int
+    lib.cig_segs.argtypes = [i64, p8, i64, p64, i64, *[p64] * 9, p8, p8]
+    lib.cig_band.restype = ctypes.c_int
+    lib.cig_band.argtypes = [i64, p64, p8, p64, p64, p8, p64, p64, i64, i64,
+                             i64, p8, p8, p32]
+    lib.cig_rle_run.restype = ctypes.c_void_p
+    lib.cig_rle_run.argtypes = [p8, i64, i64, p64, p64, p64,
+                                ctypes.POINTER(ctypes.c_int)]
+    lib.cig_rle_fetch.argtypes = [ctypes.c_void_p, p8, p32]
+    lib.cig_rle_free.argtypes = [ctypes.c_void_p]
+    lib.cig_text_len.restype = ctypes.c_int
+    lib.cig_text_len.argtypes = [i64, p64, p64, p32, p64]
+    lib.cig_strings.restype = ctypes.c_int
+    lib.cig_strings.argtypes = [i64, p8, p64, p64, p8, p64, p64, p64, p64,
+                                p64, p8, p32, p64, p64, ctypes.c_char_p]
+    return lib
+
+
+def _p32(x: np.ndarray):
+    return x.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def _i64(x) -> np.ndarray:
+    return np.ascontiguousarray(x, np.int64)
+
+
+@dataclasses.dataclass
+class Segments:
+    """A batch's overlap segments, flat: overlap i's query codes
+    q[q_offs[i]:q_offs[i + 1]] (alen[i] of them) and its candidate's
+    c[c_offs[i]:c_offs[i + 1]] (blen[i])."""
+
+    q: np.ndarray
+    q_offs: np.ndarray
+    alen: np.ndarray
+    c: np.ndarray
+    c_offs: np.ndarray
+    blen: np.ndarray
+
+    def __post_init__(self):
+        self.q, self.c = (np.ascontiguousarray(x, np.uint8)
+                          for x in (self.q, self.c))
+        self.q_offs, self.alen, self.c_offs, self.blen = (
+            _i64(x) for x in (self.q_offs, self.alen, self.c_offs, self.blen))
+        for codes, offs, lens in ((self.q, self.q_offs, self.alen),
+                                  (self.c, self.c_offs, self.blen)):
+            if (offs.shape != (len(lens) + 1,) or offs[0] != 0
+                    or not np.array_equal(np.diff(offs), lens)
+                    or (lens < 0).any() or offs[-1] > len(codes)):
+                raise ValueError("Segments: offsets and lengths disagree")
+
+    def padded(self) -> tuple[np.ndarray, np.ndarray]:
+        """q and c with 16 bytes past their last segment, which
+        native/cigars.cpp reads 16 at a time."""
+        return tuple(x if len(x) >= offs[-1] + 16 else
+                     np.concatenate([x[:offs[-1]], np.zeros(16, np.uint8)])
+                     for x, offs in ((self.q, self.q_offs),
+                                     (self.c, self.c_offs)))
+
+    def query(self, i: int) -> np.ndarray:
+        return self.q[self.q_offs[i]:self.q_offs[i + 1]]
+
+    def cand(self, i: int) -> np.ndarray:
+        return self.c[self.c_offs[i]:self.c_offs[i + 1]]
+
+
+def cigar_segments(bases, read_offs, fields) -> Segments:
+    """The segments of overlaps fields [n, 7] (rid1, beg1, end1, rid2,
+    dir2, beg2, end2): rb.get(rid1)[beg1:end1] and, reverse-complemented
+    where dir2 (readbank.revcomp_codes), rb.get(rid2)[beg2:end2], in one
+    call of native/cigars.cpp.  Raises IndexError for a read id or a span
+    outside its read."""
+    f = _i64(fields).reshape(-1, 7)
+    read_offs, bases = _i64(read_offs), np.ascontiguousarray(bases, np.uint8)
+    alen, blen = f[:, 2] - f[:, 1], f[:, 6] - f[:, 5]
+    if (alen < 0).any() or (blen < 0).any():
+        raise IndexError("cigar_segments: a span ends before it begins")
+    q_offs = np.zeros(len(f) + 1, np.int64)
+    c_offs = np.zeros(len(f) + 1, np.int64)
+    np.cumsum(alen, out=q_offs[1:])
+    np.cumsum(blen, out=c_offs[1:])
+    # slack past the last segment (Segments.padded)
+    q = np.zeros(int(q_offs[-1]) + 16, np.uint8)
+    c = np.zeros(int(c_offs[-1]) + 16, np.uint8)
+    rid1, qb, rid2, rev, cb = (_i64(f[:, k]) for k in (0, 1, 3, 4, 5))
+    alen, blen = _i64(alen), _i64(blen)
+    _cig_check("cigar_segments", _cigars_lib().cig_segs(
+        len(f), _p8(bases), len(bases), _p64(read_offs), len(read_offs) - 1,
+        _p64(rid1), _p64(qb), _p64(alen), _p64(rid2), _p64(cb), _p64(blen),
+        _p64(rev), _p64(q_offs), _p64(c_offs), _p8(q), _p8(c)))
+    return Segments(q, q_offs, alen, c, c_offs, blen)
+
+
+def cigar_band(segs: Segments, idx, LA: int, W: int):
+    """One `banded_align` group of overlaps idx: a [n, LA] and b [n, LB]
+    u8, the segments padded with 4 (LB = the group's longest candidate
+    segment, 1 at least), and base [n, LA + 1] i32, which is
+    make_band_centers with the anchors (0, 0) and (alen, blen)."""
+    idx = _i64(idx)
+    n = len(idx)
+    LB = max(int(segs.blen[idx].max()), 1)
+    a = np.empty((n, LA), np.uint8)
+    b = np.empty((n, LB), np.uint8)
+    base = np.empty((n, LA + 1), np.int32)
+    _cig_check("cigar_band", _cigars_lib().cig_band(
+        n, _p64(idx), _p8(segs.q), _p64(segs.q_offs), _p64(segs.alen),
+        _p8(segs.c), _p64(segs.c_offs), _p64(segs.blen), LA, LB, W, _p8(a),
+        _p8(b), _p32(base)))
+    return a, b, base
+
+
+def cigar_rle(mvs, j_final):
+    """traceback_banded over one group's moves, given transposed: mvs
+    [n, T] i8 (row k is column k of `banded_align`'s [T, n] moves) and
+    j_final [n], in one call.  Returns (ops u8, counts i32, offs [n + 1],
+    b_beg [n]): overlap k's runs are ops/counts[offs[k]:offs[k + 1]], op
+    0 = M, 1 = I, 2 = D."""
+    if mvs.dtype != np.int8 or mvs.ndim != 2:
+        raise ValueError("cigar_rle: mvs must be a 2-D int8 array")
+    mvs = np.ascontiguousarray(mvs)
+    n, T = mvs.shape
+    j_final = _i64(j_final)
+    if j_final.shape != (n,):
+        raise ValueError("cigar_rle: j_final does not match mvs")
+    b_beg, nruns = np.zeros(n, np.int64), np.zeros(n, np.int64)
+    err = ctypes.c_int(0)
+    lib = _cigars_lib()
+    h = lib.cig_rle_run(mvs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                        n, T, _p64(j_final), _p64(b_beg), _p64(nruns),
+                        ctypes.byref(err))
+    if not h:
+        _cig_check("cigar_rle", err.value)
+    try:
+        offs = np.zeros(n + 1, np.int64)
+        np.cumsum(nruns, out=offs[1:])
+        ops = np.empty(int(offs[-1]), np.uint8)
+        counts = np.empty(int(offs[-1]), np.int32)
+        lib.cig_rle_fetch(h, _p8(ops), _p32(counts))
+    finally:
+        lib.cig_rle_free(h)
+    return ops, counts, offs, b_beg
+
+
+def cigar_strings(segs: Segments, b_beg, run_beg, run_end, ops, counts):
+    """Per overlap i, its runs ops/counts[run_beg[i]:run_end[i]] over its
+    query segment and its candidate segment from column b_beg[i], in one
+    call: (stats [n, 5] i64: mat, mis, ins, dl, aln, as _cigar_stats
+    counts them over align_strings; text_offs [n + 1]; text u8, overlap
+    i's CIGAR at text[text_offs[i]:text_offs[i + 1]]).  Raises IndexError
+    where the runs consume past a segment's end, as align_strings would."""
+    b_beg, run_beg, run_end = (_i64(x) for x in (b_beg, run_beg, run_end))
+    ops = np.ascontiguousarray(ops, np.uint8)
+    counts = np.ascontiguousarray(counts, np.int32)
+    n = len(segs.alen)
+    if not (b_beg.shape == run_beg.shape == run_end.shape == (n,)):
+        raise ValueError("cigar_strings: array shapes do not agree")
+    if n and ((run_beg < 0) | (run_end < run_beg)
+              | (run_end > len(ops))).any() or len(ops) != len(counts):
+        raise IndexError("cigar_strings: runs outside the run arrays")
+    q, c = segs.padded()
+    lib = _cigars_lib()
+    text_offs = np.zeros(n + 1, np.int64)
+    _cig_check("cigar_strings", lib.cig_text_len(
+        n, _p64(run_beg), _p64(run_end), _p32(counts), _p64(text_offs)))
+    text = np.empty(int(text_offs[-1]) + 8, np.uint8)
+    stats = np.zeros((n, 5), np.int64)
+    _cig_check("cigar_strings", lib.cig_strings(
+        n, _p8(q), _p64(segs.q_offs), _p64(segs.alen), _p8(c),
+        _p64(segs.c_offs), _p64(segs.blen), _p64(b_beg), _p64(run_beg),
+        _p64(run_end), _p8(ops), _p32(counts), _p64(text_offs),
+        _p64(stats), text.ctypes.data_as(ctypes.c_char_p)))
+    return stats, text_offs, text[:-8]

@@ -86,12 +86,13 @@ def span(name: str, **counts) -> Span:
 
 
 @contextlib.contextmanager
-def timed(split: dict | None, key: str):
-    """Add the wall seconds of the block to split[key]."""
+def timed(split: dict | None, key: str, **counts):
+    """Add the wall seconds of the block to split[key]; the block's span
+    carries `counts`."""
     if split is None:
         yield
         return
-    sp = span(key)
+    sp = span(key, **counts)
     try:
         with sp:
             yield

@@ -27,7 +27,10 @@ COPIES = [
     ("io.fasta", ()),
     ("utils.log", ()),
     ("utils.native", ("build_and_load", "_ROOT", "_NATIVE", "Stitched",
-                      "_stitch_lib", "_p64", "_p8", "stitch_round")),
+                      "_stitch_lib", "_p64", "_p8", "stitch_round",
+                      "_cig_check", "_cigars_lib", "_p32", "_i64", "Segments",
+                      "cigar_segments", "cigar_band",
+                      "cigar_rle", "cigar_strings")),
     ("utils.simulate", ()),
     ("graph.clip", ()),
     ("graph.stringgraph", ()),

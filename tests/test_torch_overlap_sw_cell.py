@@ -173,11 +173,28 @@ def test_spans_nest_and_carry_their_counts(ran):
     assert sum(s.counts["cells"] for s in cig) == p.band_w * sum(
         o.end1 - o.beg1 for o in ovl)
     assert all(1 <= s.counts["calls"] <= s.counts["overlaps"] for s in cig)
+    # the five parts keep their names; the host reader sums all but the
+    # kernel's
+    assert CIGAR_PARTS == {"segs", "centers", "banded", "banded_rle",
+                           "strings"}
+    host = bench.metric_reader("zmo_sw.cigar_host_ms_per_mbp").HOST
+    assert set(host) == CIGAR_PARTS - {"banded"}
+    decoded = 0
     for s in cig:
         kids = [c for c in got if c.parent == s.id]
         assert {c.name for c in kids} == CIGAR_PARTS
         assert sum(c.name == "banded" for c in kids) == s.counts["calls"]
         assert all(s.t0 <= c.t0 <= c.t1 <= s.t1 for c in kids)
+        rle = [c for c in kids if c.name == "banded_rle"]
+        assert len(rle) == s.counts["calls"]
+        assert all(c.counts["overlaps"] >= 1 for c in rle)
+        decoded += sum(c.counts["overlaps"] for c in rle)
+    # every record's moves are decoded once: those given a CIGAR and the
+    # empty tracebacks, which keep the emission's placeholder
+    empty = sum(o.cigar == f"{o.aln}M" and o.mis + o.ins + o.dl == 0
+                for o in ovl)
+    assert decoded == sum(s.counts["overlaps"] for s in cig) + empty
+    assert decoded == len(ovl)
     printed = {}
     for _t, line in w.lines:
         m = STAGE.search(line)
