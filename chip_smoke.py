@@ -693,19 +693,19 @@ def _sw_batch(seed, Q=16, C=64, W=256):
     draws them (gamma(4, 9500 / 4), at least 1,000 bp), 13% error, every
     candidate overlapping its query by 1,000 bp or more on the forward
     strand, and the band of each chain from its extents as sw_align_batch
-    computes it.  LA is _pad_tier of the longest of the ~8,700 reads of
+    computes it.  LA is pad_tier of the longest of the ~8,700 reads of
     that simulation, as the engine pads every batch.  Returns the seven
     numpy inputs of banded_local_dp over 2 Q C pairs (forward, then
     reversed) and LA."""
     import numpy as np
 
-    from smartdenovo_tpu_torch.pipeline.zmo import _pad_tier
+    from smartdenovo_tpu_torch.ops.align import pad_tier
     from smartdenovo_tpu_torch.utils.simulate import mutate_read, random_genome
 
     rng = np.random.default_rng(seed)
     n_reads = GENOME_LEN * COVERAGE // 9500
     lens = np.maximum(1000, rng.gamma(4.0, 9500 / 4.0, n_reads).astype(np.int64))
-    LA = _pad_tier(int(lens.max()))
+    LA = pad_tier(int(lens.max()))
     G = random_genome(rng, 600_000)
     fwd, rev = [], []
     for _ in range(Q):

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..data.readbank import ReadBank
+from ..ops.align import pad_tier
 from ..ops.seeds import extract_seeds
 from ..ops.index import build_zmer_index
 from ..ops.dotmatrix import extract_zmer_pairs, dot_matrix_align
@@ -139,8 +140,6 @@ def align_pairs_sw(rb: ReadBank, zidx, pair_map: dict[int, list[tuple[int, int]]
     mat, aln).  Alignment orientation: query forward vs candidate in the
     given relative strand.
     """
-    from ..pipeline.zmo import _pad_tier
-
     hits = []
     queries = sorted(pair_map)
     if not queries:
@@ -155,7 +154,7 @@ def align_pairs_sw(rb: ReadBank, zidx, pair_map: dict[int, list[tuple[int, int]]
     for b0 in range(0, len(queries), Q):
         chunk = queries[b0 : b0 + Q]
         rids = np.array(chunk + [chunk[-1]] * (Q - len(chunk)), np.int64)
-        Ltier = _pad_tier(int(rb.lengths[rids].max()))
+        Ltier = pad_tier(int(rb.lengths[rids].max()))
         batch, lens = rb.batch(rids, pad_to=Ltier)
         # each row's candidates are a set: extract_zmer_pairs's slot table
         # has distinct targets per row

@@ -1,5 +1,5 @@
-// The SW (zmo) engine's CIGAR stage on the host — native part of
-// pipeline/zmo.py `_cigar_calls`.
+// The batched banded-alignment stage's host side — native part of
+// ops/align.py `banded_runs` and pipeline/zmo.py `_attach_cigars`.
 //
 // Four batched calls over a batch's accepted overlaps, each doing what the
 // plain per-overlap helpers of ops/ do, byte for byte:

@@ -20,7 +20,9 @@ kernel of csrc/refine.cu (one warp per alignment, DP then traceback, the
 affine cost model), on the CPU `refine_banded_affine_plain` and
 `traceback.tb_refine`.  `band_from_cigar` is a copy of the JAX package's.
 `refine_batch` is the host side of one batch of either refine (the
-quality-aware one in ops/refine5q.py passes its DP and tracks).
+quality-aware one in ops/refine5q.py passes its DP and tracks); it
+decodes the moves with `native.cigar_rle`, held equal to the plain
+`traceback_refine`.
 """
 
 from __future__ import annotations
@@ -29,14 +31,17 @@ import numpy as np
 import torch
 
 from ..kernels import _build
-from ..utils.timing import timed
+from ..utils.native import cigar_rle
+from ..utils.timing import span
+from .align import plane_fits, pow2_tier, run_lists, tier_chunks
 from .traceback import rle_moves, tb_refine
 
 NEG = -10000
 _OP_CODE = {"M": 0, "I": 1, "D": 2}
 W_TIERS = (64, 128, 256, 512, 1024)   # band widths refine.cu takes
-# a refine call's direction plane, B x (LA + 1) x W bytes, stays under this
-DIRS_CAP = 1 << 31
+# refine's move codes (0 M, 1 I, 2 D, 3 no-op) as banded_align's (1 M,
+# 2 I, 3 D, 0 no-op), which cigar_rle decodes
+BANDED_MOVES = np.array([1, 2, 3, 0], np.int8)
 
 
 def refine_banded_affine(a, b, alen, blen, base, *, LA: int, W: int = 128,
@@ -276,42 +281,38 @@ def cigar_stats(pairs, new_cigars, score):
     return out
 
 
-def refine_batch(dp, key, pairs, cigars, quals, *, W_base, device, split,
-                 **costs):
+def refine_batch(dp, key, pairs, cigars, quals, *, W_base, device, **costs):
     """One refine batch through the DP function `dp` (refine_banded_affine,
     or refine5q_banded with quals): pad the pairs to a power-of-two LA,
     build the band around the prior CIGARs at the batch's tier, run the DP
     on `device`, fetch score and moves, and run-length encode them into
-    the reference's outputs.  quals: per pair a [7, len(a)] u8 track
-    array, of which tracks 1, 2, 3, 5 and 6 become the DP's five track
-    arguments.  The DP with its fetch is timed under `key` in split.
+    the reference's outputs, in the order of pairs.  quals: per pair a
+    [7, len(a)] u8 track array, of which tracks 1, 2, 3, 5 and 6 become
+    the DP's five track arguments.  The DP with its fetch is a span named
+    `key`, beside the spans `band` and `rle`.
 
-    The band width is the whole batch's tier; the DP runs in calls whose
-    direction plane stays under DIRS_CAP bytes (a pair's result depends on
-    the width, not on the other pairs of its call or the padded LA)."""
+    The band width is the whole batch's tier; the DP runs in calls of one
+    pow2_tier under DIRS_CAP (ops/align.py tier_chunks): a pair's result
+    depends on the width, not on its call's other pairs or LA."""
     if not pairs:
         return []
     W = band_tier(cigars, W_base)
-    la = [1 << max(8, (len(a) - 1).bit_length()) for a, _ in pairs]
-    out = []
-    i = 0
-    while i < len(pairs):
-        LA, j = la[i], i + 1
-        while j < len(pairs) and (j + 1 - i) * (max(LA, la[j]) + 1) * W <= DIRS_CAP:
-            LA = max(LA, la[j])
-            j += 1
-        out += _refine_call(dp, key, pairs[i:j], cigars[i:j],
-                            None if quals is None else quals[i:j], W=W,
-                            device=device, split=split, **costs)
-        i = j
+    out = [None] * len(pairs)
+    for idx, LA in tier_chunks([len(a) for a, _ in pairs], plane_fits(W),
+                               tier=pow2_tier):
+        res = _refine_call(dp, key, [pairs[k] for k in idx],
+                           [cigars[k] for k in idx],
+                           None if quals is None else [quals[k] for k in idx],
+                           LA=LA, W=W, device=device, **costs)
+        for k, r in zip(idx, res):
+            out[k] = r
     return out
 
 
-def _refine_call(dp, key, pairs, cigars, quals, *, W, device, split, **costs):
+def _refine_call(dp, key, pairs, cigars, quals, *, LA, W, device, **costs):
     B = len(pairs)
     alens = np.array([len(a) for a, _ in pairs], np.int32)
     blens = np.array([len(b) for _, b in pairs], np.int32)
-    LA = 1 << max(8, (int(alens.max()) - 1).bit_length())
     LB = int(blens.max()) + 1
     a = np.full((B, LA), 4, np.uint8)
     b = np.full((B, LB), 4, np.uint8)
@@ -324,9 +325,9 @@ def _refine_call(dp, key, pairs, cigars, quals, *, W, device, split, **costs):
         for k, ((ac, _), qk) in enumerate(zip(pairs, quals)):
             qv[:, k, : len(ac)] = qk[[1, 2, 3, 5, 6], : len(ac)]
         tracks = tuple(qv)
-    with timed(split, "band"):
+    with span("band"):
         base = band_from_cigar(cigars, alens, blens, LA, W)
-    with timed(split, key):
+    with span(key):
         score, _dirs, mvs = dp(
             *(torch.from_numpy(x).to(device)
               for x in (a, b, *tracks, alens, blens, base)),
@@ -334,25 +335,26 @@ def _refine_call(dp, key, pairs, cigars, quals, *, W, device, split, **costs):
         del _dirs
         score = score.cpu().numpy()
         mvs = mvs.cpu().numpy()
-    with timed(split, "rle"):
-        return cigar_stats(pairs, traceback_refine(mvs), score)
+    with span("rle"):
+        ops, counts, offs, _ = cigar_rle(BANDED_MOVES[mvs.T],
+                                         np.zeros(B, np.int64))
+        return cigar_stats(pairs, run_lists(ops, counts, offs[:-1], offs[1:]),
+                           score)
 
 
 def refine_alignment_batch(pairs, cigars, *, W_base: int = 64, match: int = 2,
                            mismatch: int = -5, open_i: int = -3,
-                           open_d: int = -3, ext: int = -1, device="cuda",
-                           split: dict | None = None):
+                           open_d: int = -3, ext: int = -1, device="cuda"):
     """Refine a batch of alignments around their prior CIGARs on `device`.
 
     pairs: list of (a_codes, b_codes) numpy uint8 arrays (already
     oriented and sliced to the aligned region, reference qb/tb..qe/te).
     cigars: list of (ops, counts) prior CIGARs in the same coordinates.
-    split: a dict the host seconds of band, refine and rle are added to.
 
     Returns list of dicts: {score, ops, counts, mat, mis, ins, dl, aln}.
     Mirrors kswx_refine_alignment's outputs (kswx.h:633-657).
     """
     return refine_batch(refine_banded_affine, "refine", pairs, cigars, None,
-                        W_base=W_base, device=device, split=split,
+                        W_base=W_base, device=device,
                         match=match, mismatch=mismatch, open_i=open_i,
                         open_d=open_d, ext=ext)

@@ -130,7 +130,7 @@ def refine5q_banded_plain(a, b, subqv, insqv, delqv, subtag, deltag, alen,
 def refine5q_alignment_batch(pairs, quals, cigars, *, W_base: int = 64,
                              qclp: int = QCLP, qmis: int = QMIS,
                              qdel: int = QDEL, qext: int = QEXT,
-                             device="cuda", split: dict | None = None):
+                             device="cuda"):
     """Quality-aware refine of a batch of alignments around prior CIGARs,
     on `device`.
 
@@ -138,11 +138,10 @@ def refine5q_alignment_batch(pairs, quals, cigars, *, W_base: int = 64,
     quals: list of [7, len(a)] uint8 track arrays (tracks 0-4 phred,
            5-6 base codes), oriented like `a`.
     cigars: list of (ops, counts) prior CIGARs ('I' consumes a).
-    split: a dict the host seconds of band, refine5q and rle are added to.
 
     Returns list of dicts {score, ops, counts, mat, mis, ins, dl, aln}
     mirroring ops.refine.refine_alignment_batch.
     """
     return refine_batch(refine5q_banded, "refine5q", pairs, cigars, quals,
-                        W_base=W_base, device=device, split=split, qclp=qclp,
+                        W_base=W_base, device=device, qclp=qclp,
                         qmis=qmis, qdel=qdel, qext=qext)

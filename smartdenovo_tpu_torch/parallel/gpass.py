@@ -29,13 +29,13 @@ import numpy as np
 import torch
 
 from ..data.readbank import ReadBank
+from ..ops.align import pad_tier
 from ..ops.candidates import scan_candidates
 from ..ops.dotmatrix import (build_query_occ_rows, dot_matrix_align,
                              extract_zmer_pairs_sweep_rows)
 from ..ops.flatseeds import SENT_U32, build_bank_indexes, pad_pow2
 from ..ops.seeds import extract_seeds, subsample_mask
-from ..pipeline.zmo import (ZmoParams, _emit_batch_dm, _pad_tier,
-                            resolve_device)
+from ..pipeline.zmo import ZmoParams, _emit_batch_dm, resolve_device
 from ..utils.log import log
 
 I32 = torch.int32
@@ -238,7 +238,7 @@ def overlap_gparts(rb: ReadBank, params: ZmoParams | None = None,
     t0 = time.time()
     A = min(p.dm_cand, p.ncand) if p.dm_cand > 0 else p.ncand
     Q = p.batch_q
-    Ltier = _pad_tier(int(rb.lengths[0]))
+    Ltier = pad_tier(int(rb.lengths[0]))
     m = (n + G - 1) // G
     bounds = np.minimum(np.arange(G + 1) * m, n)
     Npad = pad_pow2(n, lo=1 << 8)

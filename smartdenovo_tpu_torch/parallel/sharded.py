@@ -43,10 +43,10 @@ import torch
 import torch.distributed as dist
 
 from ..data.readbank import ReadBank
+from ..ops.align import pad_tier
 from ..ops.flatseeds import SENT_U32, pad_pow2
 from ..ops.seeds import subsample_mask
-from ..pipeline.zmo import (ZmoParams, _emit_batch_dm, _pad_tier,
-                            resolve_device)
+from ..pipeline.zmo import ZmoParams, _emit_batch_dm, resolve_device
 from ..utils.log import log
 from .gpass import (Part, build_part, chain_totals, part_candidates,
                     part_chains, run_fitted)
@@ -311,7 +311,7 @@ def overlap_sharded(rb: ReadBank, params: ZmoParams | None = None,
     A = min(p.ncand, p.dm_cand) if p.dm_cand > 0 else p.ncand
     Qloc = max(1, p.batch_q // groups.n_rd)
     Q = Qloc * groups.n_rd
-    Ltier = _pad_tier(int(rb.lengths.max()))
+    Ltier = pad_tier(int(rb.lengths.max()))
     read_lens = torch.from_numpy(rb.lengths.astype(np.int32)).to(dev)
     batches = [np.arange(n)[i: i + Q] for i in range(0, n, Q)]
     cap = p.expand_budget_cap

@@ -9,10 +9,11 @@ half (reference wtcyc.c, README-tools.md:320-335).
 wtdif: align reads 2..N to read 1 and print their variants.
 
 The JAX package makes one device call per pair.  Here the pairs of a
-length tier (the JAX call's LA, 1 << max(8, ceil(log2 len))) share one
-call: a pair's rows stop at its own alen, padding codes never match and
-its band is clipped at its own blen, so each pair's answer is the one
-its own call gives, and every output line is the JAX package's.
+length tier (the JAX call's LA, ops/align.py pow2_tier) share one call:
+a pair's rows stop at its own alen, padding codes never match and its
+band is clipped at its own blen, so each pair's answer is the one its own
+call gives, and every output line is the JAX package's.  wtdif aligns
+through the batched banded stage (ops/align.py banded_runs).
 """
 
 from __future__ import annotations
@@ -24,36 +25,13 @@ import torch
 
 from ..data.readbank import revcomp_codes, seq_to_codes
 from ..io.fasta import read_seqs
+from ..ops.align import banded_runs, pow2_tier, run_lists, tier_chunks
+from ..ops.banded import align_strings
 from ..ops.overlap_dp import banded_local_dp
+from ..utils.native import Segments
 
 # codes (a, b) of one banded_local_dp call at most, summed over its pairs
 LOCAL_ELEMS = 1 << 26
-
-
-def _tier(n: int) -> int:
-    """The LA of the JAX package's one-pair call for a read of n bases."""
-    return 1 << max(8, (n - 1).bit_length())
-
-
-def _tier_chunks(lens, fits, widths=None):
-    """Indices grouped by _tier(lens[k]), in input order inside a tier,
-    cut so that fits(pairs, LA, the largest of their widths) holds (one
-    pair a chunk at least).  Yields (indices, LA)."""
-    tiers = {}
-    for k, n in enumerate(lens):
-        tiers.setdefault(_tier(int(n)), []).append(k)
-    for LA in sorted(tiers):
-        idx = tiers[LA]
-        i = 0
-        while i < len(idx):
-            j, m = i + 1, 0 if widths is None else widths[idx[i]]
-            while j < len(idx):
-                m2 = m if widths is None else max(m, widths[idx[j]])
-                if not fits(j + 1 - i, LA, m2):
-                    break
-                j, m = j + 1, m2
-            yield idx[i:j], LA
-            i = j
 
 
 def _pad_rows(seqs, width: int) -> np.ndarray:
@@ -69,8 +47,8 @@ def local_chunks(pairs):
     def fits(n, LA, lb):
         return n * (LA + max(LA, lb)) <= LOCAL_ELEMS
 
-    return _tier_chunks([len(a) for a, _ in pairs], fits,
-                        [len(b) for _, b in pairs])
+    return tier_chunks([len(a) for a, _ in pairs], fits,
+                       [len(b) for _, b in pairs], tier=pow2_tier)
 
 
 def local_inputs(pairs, LA: int, device):
@@ -171,55 +149,33 @@ def run_dif(inputs, out=None, W: int = 256, *, device="cuda"):
     """wtdif equivalent: align reads 2..N to read 1, report variants.
 
     Output: qname, pos-on-ref, type(S/I/D), ref base(s), alt base(s).
-    One banded_align call per length tier of the reads, each under
-    DIRS_CAP bytes of direction plane (2 GiB, as the refine pass's calls).
+    The reads align through the batched banded stage at the JAX package's
+    LA (pow2_tier), a call per length tier.
     """
-    from ..ops.banded import (align_strings, banded_align, make_band_centers,
-                              traceback_banded)
-    from ..ops.refine import DIRS_CAP
-
     out = out or sys.stdout
     recs = list(read_seqs(inputs))
     if len(recs) < 2:
         return
-    dev = torch.device(device)
     ref = seq_to_codes(recs[0][2])
     reads = [(name, seq_to_codes(seq)) for name, _, seq in recs[1:]]
-    lines = [None] * len(reads)
-
-    def fits(n, LA, _):
-        return n * (LA + 1) * W <= DIRS_CAP
-
+    res = banded_runs(Segments.from_pairs([(c, ref) for _, c in reads]), W,
+                      tier=pow2_tier, device=device)
+    cigs = run_lists(res.ops, res.counts, res.run_beg, res.run_end)
     bases = "ACGT-"
-    for idx, LA in _tier_chunks([len(c) for _, c in reads], fits):
-        n = len(idx)
-        a = _pad_rows([reads[k][1] for k in idx], LA)
-        b = np.tile(ref, (n, 1))
-        alen = np.array([len(reads[k][1]) for k in idx], np.int32)
-        blen = np.full(n, len(ref), np.int32)
-        base = make_band_centers([[]] * n, alen, blen, LA, W)
-        _score, _end_col, _dirs, mvs, j_final = banded_align(
-            torch.from_numpy(a).to(dev),
-            torch.from_numpy(b).to(dev),
-            torch.from_numpy(alen).to(dev), torch.from_numpy(blen).to(dev),
-            torch.from_numpy(base).to(dev), LA=LA, W=W, semiglobal_b=True)
-        cigs, b_begs = traceback_banded(mvs.cpu().numpy(), j_final.cpu().numpy())
-        for r, k in enumerate(idx):
-            name = reads[k][0]
-            ops, counts = cigs[r]
-            ra, rb = align_strings(a[r], ref[int(b_begs[r]):], ops, counts)
-            pos = int(b_begs[r])
-            buf = []
-            for x, y in zip(ra, rb):
-                if y != 4 and x != 4 and x != y:
-                    buf.append(f"{name}\t{pos}\tS\t{bases[y]}\t{bases[x]}\n")
-                elif y == 4 and x != 4:
-                    buf.append(f"{name}\t{pos}\tI\t-\t{bases[x]}\n")
-                elif x == 4 and y != 4:
-                    buf.append(f"{name}\t{pos}\tD\t{bases[y]}\t-\n")
-                if y != 4:
-                    pos += 1
-            lines[k] = "".join(buf)
+    lines = []
+    for (name, codes), (ops, counts), b_beg in zip(reads, cigs,
+                                                   res.b_beg.tolist()):
+        ra, rb = align_strings(codes, ref[b_beg:], ops, counts)
+        pos = b_beg
+        for x, y in zip(ra, rb):
+            if y != 4 and x != 4 and x != y:
+                lines.append(f"{name}\t{pos}\tS\t{bases[y]}\t{bases[x]}\n")
+            elif y == 4 and x != 4:
+                lines.append(f"{name}\t{pos}\tI\t-\t{bases[x]}\n")
+            elif x == 4 and y != 4:
+                lines.append(f"{name}\t{pos}\tD\t{bases[y]}\t-\n")
+            if y != 4:
+                pos += 1
     out.write("".join(lines))
 
 

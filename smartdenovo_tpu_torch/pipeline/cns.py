@@ -13,8 +13,9 @@ Per unitig: backbone = offset-concatenation of the layout's Y reads; then
        native/stitch.cpp;
      - the whole-read engine (units with f5q quality tracks, or
        `seg_engine=False`): probe-anchor batches of whole reads, align
-       each batch along its anchor band with `ops.banded.banded_align`
-       (csrc/banded.cu), then refine around that alignment with the
+       each batch along its anchor band through the batched banded
+       stage (`ops.align.banded_runs` over csrc/banded.cu), then refine
+       around that alignment with the
        affine `ops.refine` or, for reads with f5q tracks, the
        quality-aware `ops.refine5q` DP (both csrc/refine.cu);
   2. insert the accepted alignments best-score-first into the native DAG
@@ -31,21 +32,21 @@ sources by tests/test_torch_cns.py and tests/test_torch_host_copies.py.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
 
 from ..data.readbank import codes_to_seq, revcomp_codes
 from ..utils.log import log
-from ..utils.native import RESEED, STITCHED, DagCns, stitch_round
+from ..utils.native import RESEED, STITCHED, DagCns, Segments, stitch_round
 
-from ..ops.banded import (align_strings, banded_align, make_band_centers,
-                          traceback_banded)
+from ..ops.align import banded_runs, run_lists
+from ..ops.banded import align_strings
+from ..ops.flatseeds import pad_pow2
 from ..ops.refine import refine_alignment_batch
 from ..ops.refine5q import refine5q_alignment_batch
 from ..ops.segdp import seg_align_tb, unpack_moves
-from ..utils.timing import span, timed
+from ..utils.timing import span, split_line
 
 # base letter byte -> 2-bit code (4 = other), reference base_bit_table
 _BASE_BIT = np.full(256, 4, np.uint8)
@@ -76,12 +77,12 @@ class CnsParams:
     gap_del: int = -3      # -D, later rounds (deletion vs consensus)
     band: int = 256            # band width for the guided DP
     win_margin: int = 600      # cns window margin around expected span
-    batch_reads: int = 64      # per-dispatch reads: the row scan's cost is
-                               # ~constant in B (step-latency bound), so
-                               # bigger batches amortize it; the dirs
-                               # plane ([B, LA, W] u8) bounds B — 128 at
-                               # LA=32768 crashed the TPU worker (HBM
-                               # pressure), 64 is safe to LA 32768
+    batch_reads: int = 64      # whole reads a batch of the whole-read
+                               # engine, as the JAX package: one banded
+                               # call and one refine group, whose band
+                               # width depends on its reads; its plane,
+                               # B x (LA + 1) x W u8, is 0.54 GB at LA
+                               # 32768, far under the H100's 80 GB
     max_zmer_per_read: int = 64
     xvar: int = 128
     yvar: int = 64
@@ -300,13 +301,8 @@ def _anchor_reads(reads, windows, p: CnsParams, doffs, device):
     return anchors
 
 
-def _split_str(split: dict) -> str:
-    """The align split as logged: `part seconds` pairs by part name."""
-    return " ".join(f"{k} {v:.3f}s" for k, v in sorted(split.items()))
-
-
 def _align_pass(unit: LayUnitig, offs, cns, p: CnsParams, ga: int, gb: int,
-                *, device, split: dict | None = None):
+                *, device):
     """Align every layout read to the current consensus, batch_reads whole
     reads per call of the banded DP on `device`.
 
@@ -315,8 +311,8 @@ def _align_pass(unit: LayUnitig, offs, cns, p: CnsParams, ga: int, gb: int,
     ra = read, rb = consensus.  Applies the affine refine pass when
     p.refine (reference kswx_refine_alignment, wtcns.c:372-381); reads
     with f5q tracks get the quality-aware refine (wtcns.c:380).  The JAX
-    package's pass, with the traceback inside the DP's call; split: a dict
-    the host seconds of each part are added to (utils/timing.py).
+    package's pass, with the traceback inside the DP's call; its parts
+    are spans of the caller's span (`strings` one a batch).
     """
     nreads = len(unit.reads)
     for b0 in range(0, nreads, p.batch_reads):
@@ -332,35 +328,17 @@ def _align_pass(unit: LayUnitig, offs, cns, p: CnsParams, ga: int, gb: int,
             wstarts.append(ws)
             windows.append(cns[ws:we])
         doffs = [offs[i] - ws for i, ws in zip(ridx, wstarts)]
-        with timed(split, "probe"):
+        with span("probe"):
             anchors = _anchor_reads(reads, windows, p, doffs, device)
+        segs = Segments.from_pairs(list(zip(reads, windows)))
+        # one call at the batch's tier, the JAX package's LA: it sets the
+        # traceback's length
         LA = _pad_tier(max(len(r) for r in reads))
-        LBm = max(len(w) for w in windows)
-        B = len(reads)
-        a = np.full((B, LA), 4, np.uint8)
-        b = np.full((B, LBm), 4, np.uint8)
-        alen = np.zeros(B, np.int32)
-        blen = np.zeros(B, np.int32)
-        for i, (r, w) in enumerate(zip(reads, windows)):
-            a[i, : len(r)] = r
-            alen[i] = len(r)
-            b[i, : len(w)] = w
-            blen[i] = len(w)
-        with timed(split, "band"):
-            base = make_band_centers(anchors, alen, blen, LA, p.band)
-        with timed(split, "banded"):
-            score, end_col, _dirs, mvs, j_final = banded_align(
-                *(torch.from_numpy(x).to(device)
-                  for x in (a, b, alen, blen, base)),
-                LA=LA, W=p.band, match=p.match, mismatch=p.mismatch,
-                gap=p.gap, gap_a=ga, gap_b=gb, semiglobal_b=True)
-            del _dirs
-            score = score.cpu().numpy().copy()  # writable: refine overwrites
-            end_col = end_col.cpu().numpy()
-            mvs = mvs.cpu().numpy()
-            j_final = j_final.cpu().numpy()
-        with timed(split, "rle"):
-            cigs, b_begs = traceback_banded(mvs, j_final)
+        res = banded_runs(segs, p.band, match=p.match, mismatch=p.mismatch,
+                          gap_a=ga, gap_b=gb, anchors=anchors,
+                          tier=lambda _n: LA, device=device)
+        score, b_begs, end_col = res.score, res.b_beg, res.end_col
+        cigs = run_lists(res.ops, res.counts, res.run_beg, res.run_end)
         if p.refine:
             # affine re-alignment around the prior CIGAR (reference
             # kswx_refine_alignment, wtcns.c:372-381): canonical gap
@@ -368,16 +346,15 @@ def _align_pass(unit: LayUnitig, offs, cns, p: CnsParams, ga: int, gb: int,
             # with f5q tracks get the quality-aware variant (wtcns.c:380)
             groups: dict = {"plain": ([], [], []), "qv": ([], [], [])}
             quals = unit.quals if (p.use_qv and unit.quals) else None
-            for i in range(B):
-                ops, counts = cigs[i]
+            for i, (ops, counts) in enumerate(cigs):
                 if not ops:
                     continue
-                seg_b = b[i][int(b_begs[i]): int(end_col[i])]
-                if int(alen[i]) == 0 or seg_b.size == 0:
+                seg_b = segs.cand(i)[int(b_begs[i]): int(end_col[i])]
+                if int(segs.alen[i]) == 0 or seg_b.size == 0:
                     continue
                 qv = quals[ridx[i]] if quals is not None else None
                 g = groups["qv" if qv is not None else "plain"]
-                g[0].append((a[i][: int(alen[i])], seg_b))
+                g[0].append((segs.query(i), seg_b))
                 g[1].append((ops, counts) if qv is None else
                             ((ops, counts), qv))
                 g[2].append(i)
@@ -387,7 +364,7 @@ def _align_pass(unit: LayUnitig, offs, cns, p: CnsParams, ga: int, gb: int,
             refined = refine_alignment_batch(
                 rpairs, rcigs, W_base=p.refine_w, match=p.match,
                 mismatch=p.mismatch, open_i=ga,
-                open_d=gb, ext=p.refine_ext, device=device, split=split)
+                open_d=gb, ext=p.refine_ext, device=device)
             for i, r in zip(rmap, refined):
                 cigs[i] = (r["ops"], r["counts"])
                 # the reference sorts DAG insertion by the REFINED affine
@@ -400,22 +377,22 @@ def _align_pass(unit: LayUnitig, offs, cns, p: CnsParams, ga: int, gb: int,
                 # known fault, ROADMAP queue 3); copied, to stay equal
                 refined = refine5q_alignment_batch(
                     qpairs, [m[1] for m in qmeta], [m[0] for m in qmeta],
-                    W_base=p.refine_w, device=device, split=split)
+                    W_base=p.refine_w, device=device)
                 for i, r in zip(qmap, refined):
                     cigs[i] = (r["ops"], r["counts"])
-        for i in range(B):
-            ops, counts = cigs[i]
-            if not ops:
-                continue
-            # build alignment strings: row a = read, row b = window
-            with timed(split, "strings"):
-                ra, rb_ = align_strings(a[i], b[i][int(b_begs[i]):], ops,
+        # build alignment strings: row a = read, row b = window
+        out = []
+        with span("strings"):
+            for i, (ops, counts) in enumerate(cigs):
+                ra, rb_ = align_strings(segs.query(i),
+                                        segs.cand(i)[int(b_begs[i]):], ops,
                                         counts)
-            if ra.shape[0] == 0:
-                continue
-            beg = wstarts[i] + int(b_begs[i])
-            end = wstarts[i] + int(end_col[i])
-            yield ridx[i], int(score[i]), beg, end, ra, rb_
+                if ra.shape[0] == 0:
+                    continue
+                beg = wstarts[i] + int(b_begs[i])
+                end = wstarts[i] + int(end_col[i])
+                out.append((ridx[i], int(score[i]), beg, end, ra, rb_))
+        yield from out
 
 
 # ---- segment-parallel align pass (ops/segdp.py) --------------------------
@@ -444,9 +421,7 @@ class _SegState:
         lens = np.array([len(r) for r in unit.reads], np.int64)
         offs = np.zeros(len(lens) + 1, np.int64)
         np.cumsum(lens, out=offs[1:])
-        from .zmo import pad_pow2 as _pp2
-
-        flat = np.full(_pp2(int(offs[-1]) + SEGR + 8), 4, np.uint8)
+        flat = np.full(pad_pow2(int(offs[-1]) + SEGR + 8), 4, np.uint8)
         for i, r in enumerate(unit.reads):
             flat[offs[i]: offs[i] + len(r)] = r
         self.lens = lens
@@ -572,9 +547,7 @@ def _seg_align_pass(unit: LayUnitig, st: _SegState, offs, cns,
         seg_alen[Nseg:] = 0
         seg_w0 = arr[:, 3].astype(np.int64)
         seg_bl = arr[:, 4].astype(np.int32)
-        from .zmo import pad_pow2 as _pp2
-
-        cns_pad = np.full(_pp2(Lc + S_LBW + 8), 4, np.uint8)
+        cns_pad = np.full(pad_pow2(Lc + S_LBW + 8), 4, np.uint8)
         cns_pad[:Lc] = cns
         open_i, open_d = ga, gb
         rowsA = np.arange(SEGR, dtype=np.int64)[None, :]
@@ -873,12 +846,10 @@ def _unitig_rounds(unit: LayUnitig, p: CnsParams, return_offs, ckpt,
                         _save_cns_ckpt(ckpt, it, cns, offs, prev_agree,
                                        prev_offs, prev_cns, st)
             with span("cns.align") as sp_align:
-                split: dict = {}
                 itr = (_seg_align_pass(unit, st, offs, cns, p, ga, gb,
                                        device=device)
                        if use_seg else
-                       _align_pass(unit, offs, cns, p, ga, gb, device=device,
-                                   split=split))
+                       _align_pass(unit, offs, cns, p, ga, gb, device=device))
                 aligned = 0
                 for rid, sc, beg, end, ra, rb_ in itr:
                     aligned += 1
@@ -930,7 +901,7 @@ def _unitig_rounds(unit: LayUnitig, p: CnsParams, return_offs, ckpt,
             it + 1, sp_seed.seconds, sp_align.seconds, sp_dag.seconds)
         if not use_seg:
             log("cns %s iter %d align split: %s", unit.name, it + 1,
-                _split_str(split))
+                split_line([sp_align]))
         cns = new_cns
         if ckpt:
             _save_cns_ckpt(ckpt, it + 1, cns, offs, prev_agree, prev_offs,
@@ -960,10 +931,11 @@ def run_cns(units: list[LayUnitig], params: CnsParams | None = None,
                 continue
             out.append((unit.name, cns))
             if alnfh is not None:
-                split: dict = {}
-                write_final_alignments(alnfh, unit, offs, cns, p, vmsa=vmsa,
-                                       device=device, split=split)
-                log("cns %s -a/-V split: %s", unit.name, _split_str(split))
+                with span("cns.final") as sp_final:
+                    write_final_alignments(alnfh, unit, offs, cns, p,
+                                           vmsa=vmsa, device=device)
+                log("cns %s -a/-V split: %s", unit.name,
+                    split_line([sp_final]))
     finally:
         if alnfh is not None:
             alnfh.close()
@@ -979,7 +951,7 @@ def _row_str(codes: np.ndarray) -> str:
 
 def write_final_alignments(fh, unit: LayUnitig, offs, cns, p: CnsParams,
                            vmsa: float | None = None, margin: int = 3, *,
-                           device="cuda", split: dict | None = None):
+                           device="cuda"):
     """Reference wtcns -a output: per read, a 16-col record + Q/T/M rows;
     with vmsa, per-column base tallies over interior match-run bases and
     MATRIX rows at variant columns (wtcns.c:586-722).
@@ -992,76 +964,73 @@ def write_final_alignments(fh, unit: LayUnitig, offs, cns, p: CnsParams,
     ga, gb = p.gap_ins, p.gap_del
     rows = []
     for rid, sc, beg, end, ra, rb_ in _align_pass(unit, offs, cns, p, ga, gb,
-                                                  device=device, split=split):
+                                                  device=device):
         rows.append((rid, sc, beg, end, ra, rb_))
-    t_writer = time.perf_counter()
-    if vmsa is not None:
-        min_cnt = int(vmsa)
-        min_freq = vmsa - min_cnt
-        bases = np.zeros((4, len(cns)), np.int32)
-    counted_rows = {}
-    for rid, sc, beg, end, ra, rb_ in rows:
-        m_col = (ra != 4) & (rb_ != 4)
-        mat = int(np.sum(m_col & (ra == rb_)))
-        mis = int(np.sum(m_col & (ra != rb_)))
-        ins = int(np.sum((ra != 4) & (rb_ == 4)))
-        dl = int(np.sum((ra == 4) & (rb_ != 4)))
-        aln = ra.shape[0]
-        qlen = len(unit.reads[rid])
-        fh.write(f"{names[rid]}\t+\t{qlen}\t0\t{qlen}\t{cnsid}\t+\t{len(cns)}"
-                 f"\t{beg}\t{end}\t{sc}\t{mat / (aln + 1):.3f}"
-                 f"\t{mat}\t{mis}\t{ins}\t{dl}\n")
-        fh.write(f"Q\t{_row_str(ra)}\n")
-        fh.write(f"T\t{_row_str(rb_)}\n")
-        mline = np.full(aln, ord(" "), np.uint8)
-        mline[(ra == 4) | (rb_ == 4)] = ord("-")
-        mline[m_col & (ra != rb_)] = ord("*")
-        fh.write("M\t" + mline.tobytes().decode() + "\n\n")
+    with span("writer"):
         if vmsa is not None:
-            # interior of each match run: >margin columns from the nearest
-            # indel/alignment end on both sides (wtcns.c:627-668 lc logic)
-            runs = m_col.astype(np.int32)
-            left = np.zeros(aln, np.int32)
-            acc = 0
-            for j in range(aln):          # run-distance from run start
-                acc = acc + 1 if runs[j] else 0
-                left[j] = acc
-            right = np.zeros(aln, np.int32)
-            acc = 0
-            for j in range(aln - 1, -1, -1):
-                acc = acc + 1 if runs[j] else 0
-                right[j] = acc
-            counted = m_col & (left > margin) & (right > margin)
-            cpos = np.cumsum(rb_ != 4) - 1 + beg   # cns position per column
-            sel = counted & (ra < 4)
-            np.add.at(bases, (ra[sel], cpos[sel]), 1)
-            counted_rows[rid] = (counted, cpos)
-    if vmsa is not None and rows:
-        order = np.argsort(bases, axis=0)
-        a_ = order[3]
-        b_ = order[2]
-        cnt_a = bases[a_, np.arange(len(cns))]
-        cnt_b = bases[b_, np.arange(len(cns))]
-        keys = (a_ != b_) & (cnt_b >= min_cnt) & (cnt_b >= min_freq * cnt_a)
-        key_idx = np.nonzero(keys)[0]
-        rank = np.cumsum(keys) - keys                 # rank before position
-        for rid, sc, beg, end, ra, rb_ in sorted(rows, key=lambda r: r[2]):
-            counted, cpos = counted_rows[rid]
-            line = ["-"] * len(key_idx)
-            in_t = rb_ != 4
-            kmask = np.isin(cpos, key_idx) & in_t
-            for j in np.nonzero(kmask)[0]:
-                ki = int(rank[cpos[j]])
-                if not counted[j]:
-                    line[ki] = "-"
-                elif ra[j] == rb_[j]:
-                    line[ki] = "."
-                else:
-                    line[ki] = "ACGT-"[min(int(ra[j]), 4)]
-            fh.write(f"MATRIX\t{names[rid]}\t" + "".join(line) + "\n")
-    if split is not None:
-        split["writer"] = split.get("writer", 0.0) + (time.perf_counter()
-                                                      - t_writer)
+            min_cnt = int(vmsa)
+            min_freq = vmsa - min_cnt
+            bases = np.zeros((4, len(cns)), np.int32)
+        counted_rows = {}
+        for rid, sc, beg, end, ra, rb_ in rows:
+            m_col = (ra != 4) & (rb_ != 4)
+            mat = int(np.sum(m_col & (ra == rb_)))
+            mis = int(np.sum(m_col & (ra != rb_)))
+            ins = int(np.sum((ra != 4) & (rb_ == 4)))
+            dl = int(np.sum((ra == 4) & (rb_ != 4)))
+            aln = ra.shape[0]
+            qlen = len(unit.reads[rid])
+            fh.write(f"{names[rid]}\t+\t{qlen}\t0\t{qlen}\t{cnsid}\t+\t{len(cns)}"
+                     f"\t{beg}\t{end}\t{sc}\t{mat / (aln + 1):.3f}"
+                     f"\t{mat}\t{mis}\t{ins}\t{dl}\n")
+            fh.write(f"Q\t{_row_str(ra)}\n")
+            fh.write(f"T\t{_row_str(rb_)}\n")
+            mline = np.full(aln, ord(" "), np.uint8)
+            mline[(ra == 4) | (rb_ == 4)] = ord("-")
+            mline[m_col & (ra != rb_)] = ord("*")
+            fh.write("M\t" + mline.tobytes().decode() + "\n\n")
+            if vmsa is not None:
+                # interior of each match run: >margin columns from the nearest
+                # indel/alignment end on both sides (wtcns.c:627-668 lc logic)
+                runs = m_col.astype(np.int32)
+                left = np.zeros(aln, np.int32)
+                acc = 0
+                for j in range(aln):          # run-distance from run start
+                    acc = acc + 1 if runs[j] else 0
+                    left[j] = acc
+                right = np.zeros(aln, np.int32)
+                acc = 0
+                for j in range(aln - 1, -1, -1):
+                    acc = acc + 1 if runs[j] else 0
+                    right[j] = acc
+                counted = m_col & (left > margin) & (right > margin)
+                cpos = np.cumsum(rb_ != 4) - 1 + beg   # cns position per column
+                sel = counted & (ra < 4)
+                np.add.at(bases, (ra[sel], cpos[sel]), 1)
+                counted_rows[rid] = (counted, cpos)
+        if vmsa is not None and rows:
+            order = np.argsort(bases, axis=0)
+            a_ = order[3]
+            b_ = order[2]
+            cnt_a = bases[a_, np.arange(len(cns))]
+            cnt_b = bases[b_, np.arange(len(cns))]
+            keys = (a_ != b_) & (cnt_b >= min_cnt) & (cnt_b >= min_freq * cnt_a)
+            key_idx = np.nonzero(keys)[0]
+            rank = np.cumsum(keys) - keys                 # rank before position
+            for rid, sc, beg, end, ra, rb_ in sorted(rows, key=lambda r: r[2]):
+                counted, cpos = counted_rows[rid]
+                line = ["-"] * len(key_idx)
+                in_t = rb_ != 4
+                kmask = np.isin(cpos, key_idx) & in_t
+                for j in np.nonzero(kmask)[0]:
+                    ki = int(rank[cpos[j]])
+                    if not counted[j]:
+                        line[ki] = "-"
+                    elif ra[j] == rb_[j]:
+                        line[ki] = "."
+                    else:
+                        line[ki] = "ACGT-"[min(int(ra[j]), 4)]
+                fh.write(f"MATRIX\t{names[rid]}\t" + "".join(line) + "\n")
 
 
 def write_cns(path: str, results):

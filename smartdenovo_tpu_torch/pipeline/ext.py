@@ -19,7 +19,8 @@ Faithful port of `extending_overlap_wtext` (reference wtext.c:128-293):
      CIGAR is the traceback from that chosen cell: a second banded_align
      of the same band over the rows and columns up to it, whose cells
      there are those of the first (a cell depends on none to its right
-     or below), walked back from its corner.
+     or below), walked back from its corner, and run-length encoded by
+     native/cigars.cpp (`native.cigar_rle`).
 
 CIGAR convention: 'I' consumes read1 (column 1 of the overlap record),
 'D' consumes read2 — the in-repo convention of ops/banded traceback.
@@ -33,8 +34,10 @@ import numpy as np
 import torch
 
 from ..data.readbank import ReadBank, revcomp_codes
-from ..ops.banded import banded_align, make_band_centers, traceback_banded
+from ..ops.align import pow2_tier, run_lists
+from ..ops.banded import banded_align, make_band_centers
 from ..utils.log import log
+from ..utils.native import Segments, cigar_band, cigar_rle
 
 
 @dataclasses.dataclass
@@ -241,18 +244,11 @@ def run_ext(rb: ReadBank, overlaps, clips=None, params: ExtParams | None = None,
                  if len(j[2]) > 0 and len(j[3]) > 0]
         if not group:
             continue
-        LA = 1 << max(8, (max(len(j[2]) for j in group) - 1).bit_length())
-        LB = max(len(j[3]) for j in group)
         B = len(group)
-        a = np.full((B, LA), 4, np.uint8)
-        b = np.full((B, LB), 4, np.uint8)
-        alen = np.zeros(B, np.int32)
-        blen = np.zeros(B, np.int32)
-        for i, (_, _, ja, jb) in enumerate(group):
-            a[i, : len(ja)] = ja
-            alen[i] = len(ja)
-            b[i, : len(jb)] = jb
-            blen[i] = len(jb)
+        segs = Segments.from_pairs([(ja, jb) for _, _, ja, jb in group])
+        LA = pow2_tier(int(segs.alen.max()))
+        a, b, _ = cigar_band(segs, np.arange(B), LA, p.band_w)
+        alen, blen = segs.alen.astype(np.int32), segs.blen.astype(np.int32)
         # extension continues on the alignment's diagonal (slope 1 from
         # the overlap edge), not the (0,0)->(al,bl) interpolation
         anchors = [[(0, 0), (int(min(alen[i], blen[i])),
@@ -284,7 +280,9 @@ def run_ext(rb: ReadBank, overlaps, clips=None, params: ExtParams | None = None,
                   for x in (a[sel], b[sel], besti[sel].astype(np.int32),
                             ecol, base[sel])), **kw)
             del _d
-            sc, _bb = traceback_banded(mvs.cpu().numpy(), j_fin.cpu().numpy())
+            ops, cnt, offs, _bb = cigar_rle(mvs.t().contiguous().cpu().numpy(),
+                                            j_fin.cpu().numpy())
+            sc = run_lists(ops, cnt, offs[:-1], offs[1:])
             for k, i in enumerate(sel):
                 cigs[i] = sc[k]
         for i, (idx, side, ja, jb) in enumerate(group):

@@ -32,15 +32,17 @@ import torch
 
 from ..data.readbank import ReadBank
 from ..utils.log import log
-from ..utils.native import cigar_band, cigar_rle, cigar_segments, cigar_strings
-from ..utils.timing import span, timed
+from ..utils.native import cigar_segments, cigar_strings
+from ..utils.timing import span, split_line
 
-from ..ops.banded import align_strings, banded_align
+from ..ops.align import banded_runs, pad_tier, run_lists
+from ..ops.banded import align_strings
 from ..ops.candidates import scan_candidates
 from ..ops.dotmatrix import (dot_matrix_align, extract_zmer_pairs_join,
                              extract_zmer_pairs_sweep,
                              extract_zmer_pairs_vtab)
 from ..ops.flatseeds import build_bank_indexes, gather_query_rows, pad_pow2
+from ..ops.refine import refine_alignment_batch
 from ..ops.seeds import subsample_mask
 from ..ops.zmo_sw import sw_align_batch
 
@@ -48,17 +50,6 @@ INT32_MAX = np.int32(0x7FFFFFFF)
 # batches share budget tiers and the matcher pick in chunks of this many
 # (pow2 decomposition, as the JAX package's scan_chunk default)
 CHUNK = 16
-# `_attach_cigars` aligns each length tier of a batch's overlaps in calls
-# whose direction plane, n x (tier + 1) x W bytes, stays under this cap
-CIGAR_DIRS_CAP = 1 << 31
-
-
-def _pad_tier(n: int, tiers=(2048, 4096, 8192, 16384, 32768, 65536)) -> int:
-    """Pad lengths to a few fixed tiers so device kernels compile once."""
-    for t in tiers:
-        if n <= t:
-            return t
-    return ((n + 65535) // 65536) * 65536
 
 
 @dataclasses.dataclass
@@ -87,15 +78,15 @@ class ZmoParams:
     max_overhang: int = 256
     deviation_penalty: float = 1.0
     gap_penalty: float = 0.05
-    # batching / budgets; cand/expand/pair budgets are sized from the
-    # dataset stats, the legacy fields remain for API compatibility
+    # batching / budgets, sized from the dataset stats; "field parity":
+    # read by no code, the JAX package's fields (gbo's are GboParams')
     batch_q: int = 64
     gparts: int = 1           # -G: index the bank in G read-block passes
                               #   (parallel/gpass.py; dm engine only)
-    cand_budget: int = 1 << 20          # unused (kept for API compat)
-    expand_budget: int = 1 << 22        # unused (kept for API compat)
+    cand_budget: int = 1 << 20          # read by no code (field parity)
+    expand_budget: int = 1 << 22        # read by no code (field parity)
     expand_budget_cap: int = 1 << 26    # hard memory ceiling
-    pair_budget: int = 1 << 20          # unused (kept for API compat)
+    pair_budget: int = 1 << 20          # read by no code (field parity)
     nb: int = 32
     matcher: str = "auto"     # "auto" = per-chunk pick of sweep vs join by
                               #   exact expansion mass; "sweep"; "join";
@@ -413,7 +404,7 @@ def _dm_pass(rb, p, dev, progress, preattempted, attempted_out, parts,
         c0 += sz
     sw_engine = p.engine == "sw"
     C = min(p.align_cap, Adm)
-    Ltier = _pad_tier(int(rb.lengths[0]) if n else 1024)
+    Ltier = pad_tier(int(rb.lengths[0]) if n else 1024)
     NP = Q * Adm * 2
     read_lens_d = torch.from_numpy(rb.lengths.astype(np.int32)).to(dev)
 
@@ -617,8 +608,7 @@ def _dm_pass(rb, p, dev, progress, preattempted, attempted_out, parts,
         # the SW emission's CIGARs run here, on `device`, batch by batch as
         # _emit_batch_sw would attach them (p_emit has emit_cigar off)
         p_emit = dataclasses.replace(p, emit_cigar=False)
-        t_cig = 0.0
-        cig_split: dict = {}
+        cig_spans = []
         for bi in range(B):
             csorted = csorted_all[bi].reshape(Q, Adm)
             if sw_engine:
@@ -628,8 +618,8 @@ def _dm_pass(rb, p, dev, progress, preattempted, attempted_out, parts,
                                emitted_pairs, pre_pairs, attempted_out,
                                avg_len)
                 if p.emit_cigar and len(overlaps) > n0:
-                    t_cig += _attach_cigars(rb, p, overlaps[n0:], device=dev,
-                                            split=cig_split).seconds
+                    cig_spans.append(_attach_cigars(rb, p, overlaps[n0:],
+                                                    device=dev))
             else:
                 _emit_batch_dm(rb, p, rids_all[bi], pack_rows[bi], csorted, Q,
                                Adm, rdcovs, rdmask, overlaps, emitted_pairs,
@@ -637,11 +627,11 @@ def _dm_pass(rb, p, dev, progress, preattempted, attempted_out, parts,
                                pd=batch_pd[bi])
         sp.counts["records"] = len(overlaps)
     if progress:
+        t_cig = sum(c.seconds for c in cig_spans)
         log("stage emission: %.3fs", sp.seconds - t_cig)
         if sw_engine and p.emit_cigar:
             log("stage cigars: %.3fs", t_cig)
-            log("cigars split: %s", " ".join(
-                f"{k} {v:.3f}s" for k, v in sorted(cig_split.items())))
+            log("cigars split: %s", split_line(cig_spans))
         log("overlap done: %d overlaps in %.1fs", len(overlaps),
             sp_pass.seconds)
     return overlaps
@@ -861,141 +851,81 @@ def _emit_batch_sw(rb, p, rids, row, csorted, Q, A, C, rdcovs, rdmask,
 # ---------------------------------------------------------------------------
 
 
-def _cigar_chunks(alens, W: int, cap: int = CIGAR_DIRS_CAP):
-    """Groups of overlaps of one length tier (_pad_tier of alen), shortest
-    first, each with a direction plane, group size x (tier + 1) x W bytes,
-    under cap (one overlap a group at least).  Yields (indices, tier)."""
-    tiers = np.array([_pad_tier(int(x)) for x in alens], np.int64)
-    order = np.argsort(tiers, kind="stable")
-    i, n = 0, len(order)
-    while i < n:
-        LA = int(tiers[order[i]])
-        j = i + 1
-        while (j < n and tiers[order[j]] == LA
-               and (j + 1 - i) * (LA + 1) * W <= cap):
-            j += 1
-        yield order[i:j], LA
-        i = j
-
-
-def _attach_cigars(rb, p, ovls, *, device="cuda", split: dict | None = None):
+def _attach_cigars(rb, p, ovls, *, device="cuda"):
     """Fill Overlap.cigar/mis/ins/dl with a traceback banded alignment of
     the accepted overlap segments (reference kswx CIGARs, wtzmo.c SW mode),
-    on `device`.
+    on `device`, through the batched stage (ops/align.py banded_runs:
+    each length tier in calls under its cap, where the JAX package takes
+    a batch in one call; a pair's result depends on no other pair).  With
+    p.refine (-n) the refine pass takes the batch's pairs in one group, as
+    in the JAX package: its band width depends on the group.  The host
+    parts are batched calls of native/cigars.cpp, equal to the plain
+    helpers make_band_centers, traceback_banded and `_cigar_stats`.
 
-    The JAX package aligns a batch's overlaps in one call; a pair's result
-    depends on no other pair and not on the padded length, so the port
-    aligns each length tier in calls under CIGAR_DIRS_CAP bytes of
-    direction plane (`_cigar_chunks`): a short overlap is not padded to
-    the batch's longest.  With p.refine (-n) the refine pass takes the
-    batch's pairs in one group, as in the JAX package: its band width
-    depends on the group.  The host parts are batched calls of
-    native/cigars.cpp (utils/native.py), equal to the plain helpers
-    make_band_centers, traceback_banded and `_cigar_stats`.  split: a
-    dict the host seconds of the parts are added to: segs, centers (the
-    padded inputs and the bands), banded (the kernel with its fetch),
-    banded_rle (the run-length encoding, its span counting the
-    `overlaps` it decoded), with -n refine's band, refine and rle, and
-    strings (the counts and the CIGAR text).
-
-    Returns its span, `zmo.cigars`, the parent of those parts' spans, with
-    the counts `overlaps` (records given a CIGAR), `calls` (`banded_align`
-    launches) and `cells` (their band cells, sum of alen x W)."""
+    Returns its span, `zmo.cigars`, with the counts `overlaps` (records
+    given a CIGAR), `calls` (`banded_align` launches) and `cells` (their
+    band cells, sum of alen x W); its parts are its children: segs, the
+    stage's centers, banded and banded_rle, with -n refine's band, refine
+    and rle, and strings (the counts and the CIGAR text)."""
     with span("zmo.cigars", overlaps=0, calls=0, cells=0) as sp:
-        if ovls:
-            _cigar_calls(rb, p, ovls, torch.device(device), split, sp.counts)
+        if not ovls:
+            return sp
+        with span("segs"):
+            segs = cigar_segments(rb.bases, rb.offsets, [
+                (o.rid1, o.beg1, o.end1, o.rid2, o.dir2, o.beg2, o.end2)
+                for o in ovls])
+        r = banded_runs(segs, p.band_w, match=p.sw_match,
+                        mismatch=p.sw_mismatch, gap_a=p.sw_gap,
+                        gap_b=p.sw_gap, device=device)
+        sp.counts["calls"] += r.calls
+        sp.counts["cells"] += int(segs.alen.sum()) * p.band_w
+        ops, counts = [r.ops], [r.counts]
+        if p.refine:
+            _refine_runs(p, segs, r, ops, counts, device)
+        with span("strings"):
+            stats, text_offs, text = cigar_strings(
+                segs, r.b_beg, r.run_beg, r.run_end, np.concatenate(ops),
+                np.concatenate(counts))
+            given = np.flatnonzero(r.run_end > r.run_beg)
+            text = text.tobytes().decode("ascii")
+            offs = text_offs.tolist()
+            for i, (m, x, ins, dl, aln) in zip(given.tolist(),
+                                               stats[given].tolist()):
+                ov = ovls[i]
+                ov.mat, ov.mis, ov.ins, ov.dl, ov.aln = m, x, ins, dl, aln
+                ov.identity = m / max(1, aln)
+                ov.cigar = text[offs[i]:offs[i + 1]]
+            sp.counts["overlaps"] += len(given)
     return sp
 
 
 _OPS = "MID"
 
 
-def _cigar_calls(rb, p, ovls, dev, split, tally):
-    """`_attach_cigars`' work, its counts added to `tally`."""
-    with timed(split, "segs"):
-        segs = cigar_segments(rb.bases, rb.offsets, [
-            (o.rid1, o.beg1, o.end1, o.rid2, o.dir2, o.beg2, o.end2)
-            for o in ovls])
-    B = len(ovls)
-    alen, blen = segs.alen, segs.blen
-    W = p.band_w
-    b_begs, end_col = np.zeros(B, np.int64), np.zeros(B, np.int64)
-    # overlap i's runs: ops/counts[run_beg[i]:run_end[i]] of the parts
-    # concatenated
-    run_beg, run_end = np.zeros(B, np.int64), np.zeros(B, np.int64)
-    ops, counts, nrun = [], [], 0
-    for idx, LA in _cigar_chunks(alen, W):
-        with timed(split, "centers"):
-            a, b, base = cigar_band(segs, idx, LA, W)
-        tally["calls"] += 1
-        tally["cells"] += int(alen[idx].sum()) * W
-        with timed(split, "banded"):
-            _score, ecol, dirs, mvs, j_final = banded_align(
-                *(torch.from_numpy(x).to(dev)
-                  for x in (a, b, alen[idx].astype(np.int32),
-                            blen[idx].astype(np.int32), base)),
-                LA=LA, W=W, match=p.sw_match, mismatch=p.sw_mismatch,
-                gap=p.sw_gap, semiglobal_b=True)
-            del dirs
-            # a row an overlap, so the host reads each one's moves in order
-            mvs, j_final, ecol = (t.cpu().numpy() for t in (
-                mvs.t().contiguous(), j_final, ecol))
-        with timed(split, "banded_rle", overlaps=len(idx)):
-            g_ops, g_counts, offs, b_begs[idx] = cigar_rle(mvs, j_final)
-            run_beg[idx] = nrun + offs[:-1]
-            run_end[idx] = nrun + offs[1:]
-            ops.append(g_ops)
-            counts.append(g_counts)
-            nrun += len(g_ops)
-        end_col[idx] = ecol
-    if p.refine:
-        _refine_runs(p, segs, b_begs, end_col, run_beg, run_end, ops, counts,
-                     dev, split)
-    with timed(split, "strings"):
-        stats, text_offs, text = cigar_strings(
-            segs, b_begs, run_beg, run_end, np.concatenate(ops),
-            np.concatenate(counts))
-        given = np.flatnonzero(run_end > run_beg)
-        text = text.tobytes().decode("ascii")
-        offs = text_offs.tolist()
-        for i, (m, x, ins, dl, aln) in zip(given.tolist(),
-                                           stats[given].tolist()):
-            ov = ovls[i]
-            ov.mat, ov.mis, ov.ins, ov.dl, ov.aln = m, x, ins, dl, aln
-            ov.identity = m / max(1, aln)
-            ov.cigar = text[offs[i]:offs[i + 1]]
-        tally["overlaps"] += len(given)
-
-
-def _refine_runs(p, segs, b_begs, end_col, run_beg, run_end, ops, counts,
-                 dev, split):
+def _refine_runs(p, segs, r, ops, counts, dev):
     """Reference -n: kswx_refine_alignment around each hit's CIGAR
     (wtzmo.c:1031-1033), canonical affine gap placement.  The refined
-    runs are appended to the parts ops/counts and run_beg/run_end point
-    at them."""
-    from ..ops.refine import refine_alignment_batch
-
-    all_ops, all_counts = np.concatenate(ops), np.concatenate(counts)
-    nrun = len(all_ops)
+    runs are appended to ops/counts and r.run_beg/r.run_end point at
+    them."""
+    nrun = len(r.ops)
+    cigs = run_lists(r.ops, r.counts, r.run_beg, r.run_end)
     rpairs, rcigs, rmap = [], [], []
-    for i in range(len(run_beg)):
-        r0, r1 = int(run_beg[i]), int(run_end[i])
-        seg_b = segs.cand(i)[int(b_begs[i]): int(end_col[i])]
-        if r1 == r0 or seg_b.size == 0 or int(segs.alen[i]) == 0:
+    for i, cig in enumerate(cigs):
+        seg_b = segs.cand(i)[int(r.b_beg[i]): int(r.end_col[i])]
+        if not cig[0] or seg_b.size == 0 or int(segs.alen[i]) == 0:
             continue
         rpairs.append((segs.query(i), seg_b))
-        rcigs.append(([_OPS[o] for o in all_ops[r0:r1].tolist()],
-                      all_counts[r0:r1].tolist()))
+        rcigs.append(cig)
         rmap.append(i)
-    for i, r in zip(rmap, refine_alignment_batch(
+    for i, res in zip(rmap, refine_alignment_batch(
             rpairs, rcigs, W_base=64, match=p.sw_match,
             mismatch=p.sw_mismatch, open_i=p.sw_gap, open_d=p.sw_gap,
-            ext=-1, device=dev, split=split)):
-        ops.append(np.array([_OPS.index(o) for o in r["ops"]], np.uint8))
-        counts.append(np.array(r["counts"], np.int32))
-        run_beg[i] = nrun
-        nrun += len(r["ops"])
-        run_end[i] = nrun
+            ext=-1, device=dev)):
+        ops.append(np.array([_OPS.index(o) for o in res["ops"]], np.uint8))
+        counts.append(np.array(res["counts"], np.int32))
+        r.run_beg[i] = nrun
+        nrun += len(res["ops"])
+        r.run_end[i] = nrun
 
 
 def _cigar_stats(segs, cigs, b_begs, ovls) -> int:

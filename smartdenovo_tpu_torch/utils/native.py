@@ -334,6 +334,18 @@ class Segments:
                     or (lens < 0).any() or offs[-1] > len(codes)):
                 raise ValueError("Segments: offsets and lengths disagree")
 
+    @classmethod
+    def from_pairs(cls, pairs) -> "Segments":
+        """The segments of (query codes, target codes) pairs, copied flat
+        with the slack of `padded`."""
+        parts = []
+        for side in (0, 1):
+            segs = [np.asarray(p[side], np.uint8) for p in pairs]
+            lens = np.array([len(s) for s in segs], np.int64)
+            parts += [np.concatenate(segs + [np.zeros(16, np.uint8)]),
+                      np.concatenate([[0], np.cumsum(lens)]), lens]
+        return cls(*parts)
+
     def padded(self) -> tuple[np.ndarray, np.ndarray]:
         """q and c with 16 bytes past their last segment, which
         native/cigars.cpp reads 16 at a time."""

@@ -10,18 +10,14 @@ costs the two clock reads a stage's log line took anyway, an id and a
 record.  Closed spans go to a bounded ring in memory (`RECORDER.spans`),
 which code in the same process reads; nothing is written out.
 
-`timed(split, key)` adds the wall seconds of a block to split[key]: the
-whole-read align pass (pipeline/cns.py `_align_pass`) passes one dict per
-iteration down to the refine batches, so the split it logs holds the
-probe anchoring, each DP kernel with the fetch of its outputs (which waits
-for the device), and the host parts around them.  It records each block
-as a span as well; `split=None` times and records nothing.
+`child_seconds` sums the parts of a pass by name for the split log
+lines: each DP kernel with the fetch of its outputs (which waits for the
+device), and the host parts around them.
 """
 
 from __future__ import annotations
 
 import collections
-import contextlib
 import itertools
 import time
 
@@ -85,16 +81,18 @@ def span(name: str, **counts) -> Span:
     return RECORDER.span(name, **counts)
 
 
-@contextlib.contextmanager
-def timed(split: dict | None, key: str, **counts):
-    """Add the wall seconds of the block to split[key]; the block's span
-    carries `counts`."""
-    if split is None:
-        yield
-        return
-    sp = span(key, **counts)
-    try:
-        with sp:
-            yield
-    finally:
-        split[key] = split.get(key, 0.0) + sp.seconds
+def child_seconds(parents, rec: Recorder | None = None) -> dict:
+    """The seconds of the closed spans whose parent is one of `parents`,
+    summed by name."""
+    ids = {s.id for s in parents}
+    out: dict = {}
+    for s in (rec or RECORDER).spans:
+        if s.parent in ids:
+            out[s.name] = out.get(s.name, 0.0) + (s.t1 - s.t0) / 1e9
+    return out
+
+
+def split_line(parents) -> str:
+    """child_seconds as the split log lines print it."""
+    return " ".join(f"{k} {v:.3f}s"
+                    for k, v in sorted(child_seconds(parents).items()))

@@ -14,10 +14,12 @@ import pytest
 import torch
 
 from smartdenovo_tpu_torch.data.readbank import ReadBank, revcomp_codes
+from smartdenovo_tpu_torch.ops import align
 from smartdenovo_tpu_torch.ops.banded import (banded_align, make_band_centers,
                                               traceback_banded)
 from smartdenovo_tpu_torch.pipeline import zmo as tzmo
-from smartdenovo_tpu_torch.utils import native
+from smartdenovo_tpu_torch.utils import native, timing
+from smartdenovo_tpu_torch.utils.timing import child_seconds
 from test_torch_cuda import sw_bank
 
 # (LA, W) of two length tiers; T = 2 (LA + 1) + W, as banded_align's
@@ -279,7 +281,7 @@ def _plain_cigar_calls(rb, p, ovls, dev):
     W = p.band_w
     cigs, b_begs = [None] * B, np.zeros(B, np.int64)
     end_col = np.zeros(B, np.int64)
-    for idx, LA in tzmo._cigar_chunks(alen, W):
+    for idx, LA in align.tier_chunks(alen, align.plane_fits(W)):
         n = len(idx)
         a = np.full((n, LA), 4, np.uint8)
         b = np.full((n, max(int(blen[idx].max()), 1)), 4, np.uint8)
@@ -344,11 +346,127 @@ def test_attach_cigars_equals_the_plain_stage(sw_overlaps, refine):
     want = [dataclasses.replace(o) for o in ovls]
     got = [dataclasses.replace(o) for o in ovls]
     given = _plain_cigar_calls(rb, p, want, torch.device("cpu"))
-    split = {}
-    sp = tzmo._attach_cigars(rb, p, got, device="cpu", split=split)
+    sp = tzmo._attach_cigars(rb, p, got, device="cpu")
+    split = child_seconds([sp])
     assert sp.counts["overlaps"] == given == len(ovls) - 1
     assert [dataclasses.astuple(o) for o in got] == [
         dataclasses.astuple(o) for o in want]
     assert got[-1] == ovls[-1] and got[0].cigar != ovls[0].cigar
     assert {"segs", "centers", "banded", "banded_rle", "strings"} <= set(split)
     assert ("refine" in split) == refine
+
+
+def _stage_pairs(rng):
+    """Query and target pairs for the batched stage: targets are their
+    query mutated (10% substitutions, insertions and deletions) between
+    random flanks, one query past the 2,048 tier, one of them empty."""
+    pairs = []
+    for al in (700, 0, 350, 2300, 520, 90, 610, 430):
+        a = rng.integers(0, 4, al).astype(np.uint8)
+        core = []
+        for x in a.tolist():
+            r = rng.random()
+            if r < 0.04:
+                core.append(int(rng.integers(0, 4)))
+            elif r < 0.07:
+                continue
+            elif r < 0.10:
+                core += [x, int(rng.integers(0, 4))]
+            else:
+                core.append(x)
+        flank = [rng.integers(0, 4, int(rng.integers(0, 60))) for _ in "lr"]
+        b = np.concatenate([flank[0], core, flank[1]]).astype(np.uint8)
+        pairs.append((a, b, len(flank[0])))
+    return pairs
+
+
+@pytest.mark.parametrize("case", ["anchors", "no_anchors", "small_cap"])
+def test_stage_equals_the_plain_per_row_path(case, monkeypatch):
+    """ops/align.py banded_runs against each pair alone through
+    make_band_centers, banded_align and traceback_banded at the pair's own
+    tier: the same runs, start and end columns and scores; with a cap
+    small enough to take two pairs a call, more calls in one tier."""
+    rng = np.random.default_rng(21)
+    W = 64
+    trip = _stage_pairs(rng)
+    pairs = [(a, b) for a, b, _ in trip]
+    anchors = None
+    if case == "anchors":
+        anchors = [[(x, x + f) for x in range(0, len(a), 150)]
+                   for a, _b, f in trip]
+        anchors[2] = []
+    if case == "small_cap":
+        monkeypatch.setattr(align, "DIRS_CAP", 2 * (2048 + 1) * W)
+    segs = native.Segments.from_pairs(pairs)
+    assert segs.alen.tolist() == [len(a) for a, _ in pairs]
+    assert all(np.array_equal(segs.cand(i), b)
+               for i, (_a, b) in enumerate(pairs))
+    with timing.span("outer") as outer:
+        r = align.banded_runs(segs, W, anchors=anchors, device="cpu")
+    got = align.run_lists(r.ops, r.counts, r.run_beg, r.run_end)
+    for i, (a, b) in enumerate(pairs):
+        LA = align.pad_tier(len(a))
+        ap = np.full((1, LA), 4, np.uint8)
+        ap[0, :len(a)] = a
+        al = np.array([len(a)], np.int32)
+        bl = np.array([len(b)], np.int32)
+        anc = anchors[i] if anchors else [(0, 0), (len(a), len(b))]
+        base = make_band_centers([anc], al, bl, LA, W)
+        sc, ecol, _d, mvs, j_final = banded_align(
+            *(torch.from_numpy(x) for x in (ap, b[None], al, bl, base)),
+            LA=LA, W=W, semiglobal_b=True)
+        (cig,), b_beg = traceback_banded(mvs.numpy(), j_final.numpy())
+        assert got[i] == (list(cig[0]), list(cig[1])), i
+        assert (r.b_beg[i], r.end_col[i], r.score[i]) == (
+            b_beg[0], ecol[0], sc[0]), i
+    assert got[1] == ([], []) and all(got[k][0] for k in (0, 2, 3))
+    kids = [s for s in timing.RECORDER.spans if s.parent == outer.id]
+    assert [s.name for s in kids] == ["centers", "banded",
+                                      "banded_rle"] * r.calls
+    assert sum(s.counts["overlaps"] for s in kids
+               if s.name == "banded_rle") == len(pairs)
+    assert r.calls == (5 if case == "small_cap" else 2)
+
+
+def test_refine_decode_equals_traceback_refine():
+    """The refine DPs' moves (0 M, 1 I, 2 D, 3 no-op), mapped onto
+    banded_align's codes and run-length encoded by cigar_rle, equal
+    traceback_refine; and refine_alignment_batch, which decodes so, equals
+    each pair refined alone and decoded by traceback_refine, in input
+    order."""
+    from smartdenovo_tpu_torch.ops import refine
+
+    rng = np.random.default_rng(8)
+    T, n = 400, 9
+    mvs = np.full((T, n), 3, np.int8)
+    for k in range(1, n):
+        L = int(rng.integers(1, T + 1))
+        mvs[:L, k] = np.repeat(rng.integers(0, 3, L),
+                               rng.geometric(0.3, L))[:L]
+    mvs[rng.random(mvs.shape) < 0.01] = 3
+    ops, counts, offs, b_beg = native.cigar_rle(refine.BANDED_MOVES[mvs.T],
+                                                np.zeros(n, np.int64))
+    got = align.run_lists(ops, counts, offs[:-1], offs[1:])
+    assert got == [(list(o), list(c)) for o, c in refine.traceback_refine(mvs)]
+    assert got[0] == ([], []) and not b_beg.any()
+
+    trip = _stage_pairs(rng)[:6]
+    pairs = [(a, b[f:f + len(a)]) for a, b, f in trip]
+    cigars = [(["M"], [max(len(a), len(b), 1)]) for a, b in pairs]
+    res = refine.refine_alignment_batch(pairs, cigars, device="cpu")
+    W = refine.band_tier(cigars, 64)
+    for k, (a, b) in enumerate(pairs):
+        LA = align.pow2_tier(len(a))
+        ap = np.full((1, LA), 4, np.uint8)
+        ap[0, :len(a)] = a
+        bp = np.full((1, len(b) + 1), 4, np.uint8)
+        bp[0, :len(b)] = b
+        al = np.array([len(a)], np.int32)
+        bl = np.array([len(b)], np.int32)
+        base = refine.band_from_cigar([cigars[k]], al, bl, LA, W)
+        sc, _d, mv = refine.refine_banded_affine(
+            *(torch.from_numpy(x) for x in (ap, bp, al, bl, base)),
+            LA=LA, W=W)
+        (want,) = refine.cigar_stats([(a, b)], refine.traceback_refine(
+            mv.numpy()), sc.numpy())
+        assert res[k] == want, k

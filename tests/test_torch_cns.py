@@ -6,6 +6,7 @@ tests/goldens/smoke.ref.lay; the segment state carries across
 the JAX package equals its source.  Checkpoints and the `cns` CLI are in
 test_torch_cns_ckpt_cli.py, `asm -c 1` in test_torch_cns_asm.py."""
 
+import dataclasses
 import inspect
 import os
 
@@ -126,10 +127,22 @@ def _tail(src, first):
 
 
 def test_copied_code_equals_sources():
-    for name in ("CnsParams", "LayUnitig", "units_from_graph",
-                 "parse_lay_file", "_gen_backbone", "_pad_tier", "_SegState",
+    for name in ("LayUnitig", "units_from_graph",
+                 "parse_lay_file", "_gen_backbone", "_pad_tier",
                  "_build_segments", "_cigar_pieces", "write_cns"):
         assert _src(tcns, name) == _src(jcns, name), name
+    # _SegState takes pad_pow2 from the module's imports (ops/flatseeds.py)
+    assert _src(tcns, "_SegState") == _src(jcns, "_SegState").replace(
+        "        from .zmo import pad_pow2 as _pp2\n\n", "").replace(
+        "_pp2(", "pad_pow2(")
+    # CnsParams: the copy gives batch_reads' reason on the H100 in its
+    # comment; every field and default is the source's
+    j, t = _src(jcns, "CnsParams"), _src(tcns, "CnsParams")
+    cut, after = "    batch_reads: int = 64 ", "    max_zmer_per_read"
+    assert j.split(cut)[0] == t.split(cut)[0]
+    assert j.split(after)[1] == t.split(after)[1]
+    assert (dataclasses.astuple(tcns.CnsParams())
+            == dataclasses.astuple(jcns.CnsParams()))
     for name in ("MsaParams", "msa_unitig", "run_msa"):
         assert _src(tmsa, name) == _src(jmsa, name), name
     for name in ("SEGR", "S_OVL", "S_STRIDE", "S_LBW", "S_W", "S_T",

@@ -19,6 +19,7 @@ from smartdenovo_tpu.utils.simulate import random_genome, simulate_reads
 from smartdenovo_tpu_torch import convert
 from smartdenovo_tpu_torch.data.readbank import ReadBank as TReadBank
 from smartdenovo_tpu_torch.ops import dotmatrix as tdm
+from smartdenovo_tpu_torch.ops.align import pad_tier
 from smartdenovo_tpu_torch.ops.flatseeds import pad_pow2
 from smartdenovo_tpu_torch.ops.seeds import extract_seeds as textract
 from smartdenovo_tpu_torch.parallel import gpass
@@ -67,7 +68,7 @@ def padded_batch(banks):
         Lc=pad_pow2(int(stats[5 * Npad]), lo=1 << 10), A=A, Adm=A,
         cbud=1 << 16, kq=1 << 14, ksave=P.ksave, kovl=P.kovl,
         len_ratio=P.len_ratio)
-    batch, blens = rb.batch(rids, pad_to=tzmo._pad_tier(int(rb.lengths[0])))
+    batch, blens = rb.batch(rids, pad_to=pad_tier(int(rb.lengths[0])))
     jz = jextract(jnp.asarray(batch), jnp.asarray(blens), P.zsize, P.hz)
     tz = textract(torch.from_numpy(batch), torch.from_numpy(blens), P.zsize,
                   P.hz)

@@ -19,6 +19,7 @@ from smartdenovo_tpu.pipeline.pre import preprocess
 from smartdenovo_tpu.utils.simulate import (random_genome, simulate_reads,
                                             write_sim_fasta)
 from smartdenovo_tpu_torch import cli
+from smartdenovo_tpu_torch.ops import align as talign
 from smartdenovo_tpu_torch.pipeline import cns as tcns
 from smartdenovo_tpu_torch.pipeline import driver as tdriver
 from smartdenovo_tpu_torch.pipeline import zmo as tzmo
@@ -105,10 +106,13 @@ def test_cli_zmo_matches_jax(bank, tmp_path):
 
 def test_copied_host_helpers_equal_sources():
     for name in ("_nbest_of", "_emit_batch_dm", "_extract_candidates_dm",
-                 "_replay_dm", "_emit_batch_sw", "write_overlaps",
-                 "_pad_tier"):
+                 "_replay_dm", "_emit_batch_sw", "write_overlaps"):
         assert (inspect.getsource(getattr(tzmo, name))
                 == inspect.getsource(getattr(jzmo, name))), name
+    # the tiers moved to the ops layer with the batched banded stage
+    assert (inspect.getsource(talign.pad_tier).replace(
+        "def pad_tier", "def _pad_tier")
+        == inspect.getsource(jzmo._pad_tier))
     assert (inspect.getsource(tdriver.remap_overlaps)
             == inspect.getsource(jdriver.remap_overlaps))
     # every field the port keeps has the JAX package's default, also

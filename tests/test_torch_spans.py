@@ -25,7 +25,7 @@ from portbench.harness.stages import (CNS_ITER, CNS_SEGDP, STAGE,  # noqa: E402
 from portbench.harness.trace import Trace  # noqa: E402
 from portbench.harness.window import Window, measure  # noqa: E402
 from smartdenovo_tpu_torch.utils import timing  # noqa: E402
-from smartdenovo_tpu_torch.utils.timing import Recorder, timed  # noqa: E402
+from smartdenovo_tpu_torch.utils.timing import Recorder  # noqa: E402
 
 # the benchmark rehearsal's cuts (portbench/tests/test_portbench_rehearsal.py)
 TINY_OVERLAP = dict(genome_bp=80_000, coverage=10, mean_len=3000,
@@ -94,21 +94,32 @@ def test_counts_start_as_given_and_grow_while_open():
     assert rec.spans[-1].counts == {"reads": 5, "kept": 3, "late": 7}
 
 
-def test_timed_fills_its_dict_from_its_spans():
-    split: dict = {}
-    for _ in range(2):
-        with timed(split, "probe"):
-            sum(range(1000))
-    with timed(split, "band"):
-        pass
-    last = list(timing.RECORDER.spans)[-3:]
-    assert [s.name for s in last] == ["probe", "probe", "band"]
-    assert split["probe"] == pytest.approx(last[0].seconds + last[1].seconds,
-                                           abs=1e-12)
-    assert split["band"] == last[2].seconds
-    with timed(None, "probe"):
-        pass
-    assert timing.RECORDER.spans[-1] is last[2]
+def test_child_seconds_sums_the_children_of_the_given_spans_by_name():
+    rec = Recorder()
+    with rec.span("pass") as a:
+        for _ in range(2):
+            with rec.span("probe"):
+                with rec.span("inner"):
+                    sum(range(1000))
+        with rec.span("band"):
+            pass
+    with rec.span("pass") as b:
+        with rec.span("probe"):
+            pass
+    with rec.span("other") as c:
+        with rec.span("band"):
+            pass
+    kids = {p.id: [s for s in rec.spans if s.parent == p.id]
+            for p in (a, b, c)}
+    got = timing.child_seconds([a, b], rec)
+    assert set(got) == {"probe", "band"}         # not a grandchild's name
+    probes = [s for s in kids[a.id] + kids[b.id] if s.name == "probe"]
+    assert len(probes) == 3
+    assert got["probe"] == pytest.approx(sum(s.seconds for s in probes),
+                                         abs=1e-12)
+    assert got["band"] == kids[a.id][-1].seconds
+    assert timing.child_seconds([c], rec) == {"band": kids[c.id][0].seconds}
+    assert timing.child_seconds([], rec) == {}
 
 
 # ----------------------------------------------- spans of tiny units (CPU)

@@ -222,7 +222,8 @@ def test_pairaln_batch_equals_one_pair_calls():
     tier equals the JAX package's one-pair `_align_two`, among them b
     longer than a's LA and a pair with no positive cell."""
     from smartdenovo_tpu.pipeline.aln_tools import _align_two
-    from smartdenovo_tpu_torch.pipeline.aln_tools import _tier, align_local_batch
+    from smartdenovo_tpu_torch.ops.align import pow2_tier as _tier
+    from smartdenovo_tpu_torch.pipeline.aln_tools import align_local_batch
 
     recs = pair_recs(np.random.default_rng(5))
     pairs = [(recs[k][1], recs[k + 1][1]) for k in range(0, len(recs), 2)]

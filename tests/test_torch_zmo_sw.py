@@ -75,10 +75,10 @@ def test_cli_zmo_sw_ovl_byte_equal(runs, tmp_path):
 
 def test_attach_cigars_split_under_caps_equals_one_call(runs, monkeypatch):
     """`_attach_cigars` aligns a batch's overlaps in calls of one length
-    tier under CIGAR_DIRS_CAP bytes of direction plane, and the refine
-    pass (-n) its group under refine.DIRS_CAP: with caps that force a call
-    per pair or two, the records equal those of one call."""
-    from smartdenovo_tpu_torch.ops import refine
+    tier under ops/align.py's DIRS_CAP bytes of direction plane, and the
+    refine pass (-n) its group under the same cap: with a cap that forces
+    a call per pair or two, the records equal those of one call."""
+    from smartdenovo_tpu_torch.ops import align
 
     _jo, to, _jp, _fa = runs
     names, seqs = sw_bank()
@@ -87,16 +87,17 @@ def test_attach_cigars_split_under_caps_equals_one_call(runs, monkeypatch):
     blank = [dataclasses.replace(o, cigar="0M", mat=0, mis=0, ins=0, dl=0)
              for o in to[:12]]
     one = [dataclasses.replace(o) for o in blank]
-    tzmo._attach_cigars(rb, p, one, device="cpu")
-    chunks = tzmo._cigar_chunks
-    monkeypatch.setattr(tzmo, "_cigar_chunks",
-                        lambda alens, W: chunks(alens, W, cap=1))
-    monkeypatch.setattr(refine, "DIRS_CAP", 2 * 4097 * 64)
+    sp_one = tzmo._attach_cigars(rb, p, one, device="cpu")
+    assert ([(list(i), la) for i, la in align.tier_chunks(
+        [900, 5000, 300], align.plane_fits(64))]
+        == [([0, 2], 2048), ([1], 8192)])
+    # a banded call (W 256) a pair, a refine call (W 64) a few pairs
+    monkeypatch.setattr(align, "DIRS_CAP", 2 * 4097 * 64)
+    assert [list(i) for i, _ in align.tier_chunks(
+        [900, 300], align.plane_fits(256))] == [[0], [1]]
     split = [dataclasses.replace(o) for o in blank]
-    tzmo._attach_cigars(rb, p, split, device="cpu")
-    assert ([(list(i), la) for i, la in chunks([900, 5000, 300], 64)]
-            == [([0, 2], 2048), ([1], 8192)])
-    assert [list(i) for i, _ in chunks([900, 300], 64, cap=1)] == [[0], [1]]
+    sp = tzmo._attach_cigars(rb, p, split, device="cpu")
+    assert sp.counts["calls"] == len(split) > sp_one.counts["calls"]
     assert ([dataclasses.astuple(o) for o in split]
             == [dataclasses.astuple(o) for o in one])
     assert all(o.cigar != "0M" for o in one)
