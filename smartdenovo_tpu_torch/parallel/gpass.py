@@ -35,7 +35,8 @@ from ..ops.dotmatrix import (build_query_occ_rows, dot_matrix_align,
                              extract_zmer_pairs_sweep_rows)
 from ..ops.flatseeds import SENT_U32, build_bank_indexes, pad_pow2
 from ..ops.seeds import extract_seeds, subsample_mask
-from ..pipeline.zmo import ZmoParams, _emit_batch_dm, resolve_device
+from ..pipeline.zmo import (ZmoParams, _dm_emission, _emit_dm,
+                             resolve_device)
 from ..utils.log import log
 
 I32 = torch.int32
@@ -365,17 +366,14 @@ def overlap_gparts(rb: ReadBank, params: ZmoParams | None = None,
     # ---- host emission (single-device semantics) ----
     t3 = time.time()
     overlaps: list = []
-    emitted: set = set()
     rdcovs = np.zeros(n, np.int64)
-    rdmask = np.zeros(n, bool)
-    avg_len = rb.avg_len()
-    pos = np.arange(NP, dtype=np.int64)
+    em = _dm_emission(rb, p, rb.avg_len())
+    pos = np.arange(NP, dtype=np.int32)
     for bi in range(B):
-        row = np.concatenate([pos, packs[bi].reshape(-1).astype(np.int64),
-                              np.zeros(4, np.int64)])
-        _emit_batch_dm(rb, p, rids_all[bi], row, csorted_all[bi], Q, A,
-                       rdcovs, rdmask, overlaps, emitted, set(), None,
-                       avg_len)
+        row = np.concatenate([pos, packs[bi].reshape(-1),
+                              np.zeros(4, np.int32)])
+        _emit_dm(em, rb, rids_all[bi], row, csorted_all[bi], Q, A, rdcovs,
+                 overlaps, None)
     if progress:
         log("stage index: %.3fs", t_index)
         log("stage emission: %.3fs", time.time() - t3)

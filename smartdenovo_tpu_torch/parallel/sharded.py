@@ -46,7 +46,8 @@ from ..data.readbank import ReadBank
 from ..ops.align import pad_tier
 from ..ops.flatseeds import SENT_U32, pad_pow2
 from ..ops.seeds import subsample_mask
-from ..pipeline.zmo import ZmoParams, _emit_batch_dm, resolve_device
+from ..pipeline.zmo import (ZmoParams, _dm_emission, _emit_dm,
+                             resolve_device)
 from ..utils.log import log
 from .gpass import (Part, build_part, chain_totals, part_candidates,
                     part_chains, run_fitted)
@@ -296,7 +297,7 @@ def overlap_sharded(rb: ReadBank, params: ZmoParams | None = None,
     Call on every rank of an initialised torch.distributed world with the
     same bank and parameters.  Query batches stream over the rd rows
     against the idx-sharded bank; every rank replays the single-device
-    emission (`_emit_batch_dm`: nbest, ledger, dedup) over the gathered
+    emission (`_emit_dm`: nbest, ledger, dedup) over the gathered
     rows and returns the same list, whose pair set equals overlap_dmo's
     modulo top-A coverage ties."""
     p = params or ZmoParams.dmo()
@@ -317,10 +318,8 @@ def overlap_sharded(rb: ReadBank, params: ZmoParams | None = None,
     cap = p.expand_budget_cap
     bud = sharded_budgets(sb, n, batches, Q, cap)
     overlaps: list = []
-    emitted_pairs: set = set()
     rdcovs = np.zeros(n, np.int64)
-    rdmask = np.zeros(n, bool)
-    avg_len = rb.avg_len()
+    em = _dm_emission(rb, p, rb.avg_len())
     NPl = Qloc * A * 2
     heads = [row[0] for row in groups.grid]    # idx 0 of each rd row
     n_redispatch = 0
@@ -356,8 +355,7 @@ def overlap_sharded(rb: ReadBank, params: ZmoParams | None = None,
                                 axis=1).astype(np.int64)
         row = np.concatenate([np.arange(Q * A * 2, dtype=np.int64),
                               pk_all.reshape(-1), np.zeros(4, np.int64)])
-        _emit_batch_dm(rb, p, rids, row, cs_all, Q, A, rdcovs, rdmask,
-                       overlaps, emitted_pairs, set(), None, avg_len)
+        _emit_dm(em, rb, rids, row, cs_all, Q, A, rdcovs, overlaps, None)
         if progress and dist.get_rank() == 0:
             log("sharded overlap %d/%d reads, %d overlaps",
                 min(n, int(b[-1]) + 1), n, len(overlaps))

@@ -9,7 +9,8 @@ budgets (and, with matcher "auto", the sweep or join matcher) per chunk of
 batches, and phase 2 matches z-mers and chains blocks batch by batch.
 Batches that overflow a budget are recomputed at a bigger one, and the
 host replays the reference's sequential emission (nbest early stop
-wtzmo.c:806-807, attempted-pair ledger :813-820) in batch order.
+wtzmo.c:806-807, attempted-pair ledger :813-820) in batch order, a batch
+a call of native/emitdm.cpp (`_emit_dm`).
 
 The SW engine runs the same phases 1-2, then, per batch, the banded local
 DP on the top `align_cap` chains of each query (ops/zmo_sw.py, over
@@ -26,13 +27,15 @@ logged as "stage <name>: <seconds>s".
 from __future__ import annotations
 
 import dataclasses
+import gc
+import itertools
 
 import numpy as np
 import torch
 
 from ..data.readbank import ReadBank
 from ..utils.log import log
-from ..utils.native import cigar_segments, cigar_strings
+from ..utils.native import EmitDm, cigar_segments, cigar_strings
 from ..utils.timing import span, split_line
 
 from ..ops.align import banded_runs, pad_tier, run_lists
@@ -591,7 +594,7 @@ def _dm_pass(rb, p, dev, progress, preattempted, attempted_out, parts,
                 sp.counts["redispatched"], sp.counts["attempts"])
 
     # ---- host emission (sequential reference semantics) ----
-    with span("zmo.emission") as sp:
+    with span("zmo.emission", candidates=0, attempted=0, native=0) as sp:
         overlaps: list[Overlap] = []
         emitted_pairs: set[tuple[int, int]] = set()
         pre_pairs: set[tuple[int, int]] = set()
@@ -609,6 +612,7 @@ def _dm_pass(rb, p, dev, progress, preattempted, attempted_out, parts,
         # _emit_batch_sw would attach them (p_emit has emit_cigar off)
         p_emit = dataclasses.replace(p, emit_cigar=False)
         cig_spans = []
+        em = None if sw_engine else _dm_emission(rb, p, avg_len, pre_pairs)
         for bi in range(B):
             csorted = csorted_all[bi].reshape(Q, Adm)
             if sw_engine:
@@ -621,10 +625,12 @@ def _dm_pass(rb, p, dev, progress, preattempted, attempted_out, parts,
                     cig_spans.append(_attach_cigars(rb, p, overlaps[n0:],
                                                     device=dev))
             else:
-                _emit_batch_dm(rb, p, rids_all[bi], pack_rows[bi], csorted, Q,
-                               Adm, rdcovs, rdmask, overlaps, emitted_pairs,
-                               pre_pairs, attempted_out, avg_len,
-                               pd=batch_pd[bi])
+                ncand, natt = _emit_dm(em, rb, rids_all[bi], pack_rows[bi],
+                                       csorted, Q, Adm, rdcovs, overlaps,
+                                       attempted_out, pd=batch_pd[bi])
+                sp.counts["candidates"] += ncand
+                sp.counts["attempted"] += natt
+                sp.counts["native"] += 1
         sp.counts["records"] = len(overlaps)
     if progress:
         t_cig = sum(c.seconds for c in cig_spans)
@@ -637,9 +643,56 @@ def _dm_pass(rb, p, dev, progress, preattempted, attempted_out, parts,
     return overlaps
 
 
+def _dm_emission(rb, p, avg_len, pre_pairs=()) -> EmitDm:
+    """The native emission state of one dm pass over `rb` with the
+    overlapper's gates (native/emitdm.cpp; `pre_pairs` read-id pairs)."""
+    return EmitDm(rb.lengths, zsize=p.zsize, ztot=p.ztot,
+                  min_score=p.min_score, min_id=p.min_id, nbest=p.nbest,
+                  avg_len=avg_len,
+                  max_unalign_dovetail=p.max_unalign_dovetail,
+                  pre_pairs=pre_pairs)
+
+
+def _emit_dm(em, rb, rids, row, csorted, Q, A, rdcovs, overlaps,
+             attempted_out, pd=None):
+    """_emit_batch_dm through the pass's native emission `em`: the same
+    records in the same order, coverage and attempted pairs, in one call
+    (span `emit_native`); the Overlap objects are built from its arrays
+    (span `records`).  Returns (candidate rows replayed, attempted rows)."""
+    with span("emit_native"):
+        recs, att, counts = em.batch(rids, row, csorted, Q, A, rdcovs,
+                                     pd=pd,
+                                     attempted=attempted_out is not None)
+    with span("records"):
+        if len(recs):
+            (rid1, beg1, end1, rid2, dir2, beg2, end2, score,
+             aln) = recs.T.tolist()
+            zero = itertools.repeat(0)
+            # an Overlap refers to no other object, so no cycle can form
+            # while they are made: the collector, which would walk them
+            # again and again as they pile up, waits until they are all made
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                overlaps.extend(map(Overlap, rid1, zero, beg1, end1, rid2,
+                                    dir2, beg2, end2, score,
+                                    (recs[:, 7] / recs[:, 8]).tolist(),
+                                    score, zero, zero, zero, aln))
+            finally:
+                if collecting:
+                    gc.enable()
+    if attempted_out is not None:
+        # a set filled in _replay_dm's insertion order iterates in its order
+        names = rb.names
+        for qrid, cand in set(map(tuple, att.tolist())):
+            attempted_out.append((names[qrid], names[cand]))
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # host emission: copied verbatim from smartdenovo_tpu/pipeline/zmo.py (the
-# tests hold each copy equal to its source)
+# tests hold each copy equal to its source; _emit_dm replaces the dm
+# engine's copies on every path, which the tests hold it to)
 # ---------------------------------------------------------------------------
 
 

@@ -3,8 +3,9 @@
 The DAG consensus engine (native/dagcns.cpp) and wtmsa's POA engine
 (native/poa.cpp) are plain C++ called through ctypes; this package keeps
 its own copies of their sources in ``smartdenovo_tpu_torch/native/``,
-beside its own segment stitcher (native/stitch.cpp) and the SW engine's
-CIGAR stage (native/cigars.cpp).
+beside its own segment stitcher (native/stitch.cpp), the SW engine's
+CIGAR stage (native/cigars.cpp) and the dm engine's emission
+(native/emitdm.cpp).
 Each is compiled with g++ at first use into ``smartdenovo_tpu_torch/_build/``
 (listed in .gitignore), under a name keyed by a hash of the source and the
 flags, so an edited source rebuilds and nothing is written beside the
@@ -467,3 +468,107 @@ def cigar_strings(segs: Segments, b_beg, run_beg, run_end, ops, counts):
         _p64(run_end), _p8(ops), _p32(counts), _p64(text_offs),
         _p64(stats), text.ctypes.data_as(ctypes.c_char_p)))
     return stats, text_offs, text[:-8]
+
+
+# ---------------------------------------------------------------------------
+# native/emitdm.cpp: the dm engine's emission, a query batch at a time
+# ---------------------------------------------------------------------------
+
+
+def _emitdm_lib() -> ctypes.CDLL:
+    lib = build_and_load("emitdm")
+    i64, p64 = ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)
+    p32 = ctypes.POINTER(ctypes.c_int32)
+    lib.emitdm_new.restype = ctypes.c_void_p
+    lib.emitdm_new.argtypes = [i64, p64, i64, i64, i64, ctypes.c_double, i64,
+                               i64, i64, i64, p64]
+    lib.emitdm_free.argtypes = [ctypes.c_void_p]
+    lib.emitdm_batch.restype = ctypes.c_int
+    lib.emitdm_batch.argtypes = [ctypes.c_void_p, i64, i64, p32, p32, p32,
+                                 i64, p64, p64]
+    lib.emitdm_fetch.restype = i64
+    lib.emitdm_fetch.argtypes = [ctypes.c_void_p, p64, p64]
+    lib.emitdm_npairs.restype = i64
+    lib.emitdm_npairs.argtypes = [ctypes.c_void_p]
+    lib.emitdm_pairs.argtypes = [ctypes.c_void_p, p64]
+    return lib
+
+
+def _i32(x) -> np.ndarray:
+    """x as a contiguous int32 array; a value that int32 cannot hold
+    raises."""
+    x = np.asarray(x)
+    if x.dtype == np.int32:
+        return np.ascontiguousarray(x)
+    y = np.ascontiguousarray(x, np.int32)
+    if not np.array_equal(y, x):
+        raise ValueError("a value outside int32")
+    return y
+
+
+class EmitDm:
+    """native/emitdm.cpp: the dm engine's emission over one pass, the
+    state (pre-attempted and emitted pairs) held natively from batch to
+    batch.  `lengths` are the bank's read lengths, `pre_pairs` read-id
+    pairs that are not to be emitted (the -L ledger); the gates are the
+    overlapper's parameters."""
+
+    def __init__(self, lengths, *, zsize: int, ztot: int, min_score: int,
+                 min_id: float, nbest: int, avg_len: int,
+                 max_unalign_dovetail: int, pre_pairs=()):
+        self._lib = _emitdm_lib()
+        self._h = None
+        lens = _i64(lengths)
+        pre = np.array(list(pre_pairs), np.int64).reshape(-1, 2)
+        self.n = len(lens)
+        self._h = self._lib.emitdm_new(
+            self.n, _p64(lens), zsize, ztot, min_score, float(min_id), nbest,
+            avg_len, max_unalign_dovetail, len(pre), _p64(pre))
+        if not self._h:
+            raise IndexError("EmitDm: a pre-attempted pair names a read "
+                             "outside the bank")
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.emitdm_free(self._h)
+            self._h = None
+
+    def batch(self, rids, row, csorted, Q: int, A: int, rdcovs, pd=None,
+              attempted: bool = False):
+        """_emit_batch_dm's work on one batch: rids [Q], csorted [Q, A],
+        the packed row at pair-row width pd (None: the positional Q*A*2
+        layout), the coverage rdcovs [n] int64, updated in place.  Returns
+        (recs [k, 9] i64: rid1, beg1, end1, rid2, dir2, beg2, end2, score,
+        aln, in emission order; att [m, 2] i64, the attempted pairs in the
+        order they were first inserted, None unless `attempted`;
+        (candidate rows replayed, attempted rows))."""
+        NP = Q * A * 2
+        W = NP if pd is None else int(pd)
+        rids, row, csorted = _i32(rids), _i32(row), _i32(csorted)
+        if (rdcovs.dtype != np.int64 or not rdcovs.flags.c_contiguous
+                or rdcovs.shape != (self.n,)):
+            raise ValueError("EmitDm.batch: rdcovs must be a contiguous "
+                             "int64 array of one entry a read")
+        if (rids.shape != (Q,) or csorted.size != Q * A
+                or row.ndim != 1 or len(row) < 6 * W + NP):
+            raise ValueError("EmitDm.batch: array shapes do not agree")
+        counts = np.zeros(3, np.int64)
+        err = self._lib.emitdm_batch(self._h, Q, A, _p32(rids), _p32(csorted),
+                                     _p32(row), W, _p64(rdcovs),
+                                     _p64(counts))
+        if err:
+            raise IndexError("EmitDm.batch: a read or pair id outside the "
+                             "bank or the row map")
+        recs = np.empty((int(counts[0]), 9), np.int64)
+        att = np.empty((Q * A, 2), np.int64) if attempted else None
+        m = self._lib.emitdm_fetch(self._h, _p64(recs),
+                                   None if att is None else _p64(att))
+        return (recs, None if att is None else att[:m],
+                (int(counts[1]), int(counts[2])))
+
+    def pairs(self) -> np.ndarray:
+        """The pass's emitted pairs [k, 2] (smaller id, larger id), in no
+        particular order."""
+        out = np.empty((self._lib.emitdm_npairs(self._h), 2), np.int64)
+        self._lib.emitdm_pairs(self._h, _p64(out))
+        return out

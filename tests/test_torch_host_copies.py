@@ -41,7 +41,8 @@ COPIES = [
                       "_stitch_lib", "_p64", "_p8", "stitch_round",
                       "_cig_check", "_cigars_lib", "_p32", "_i64", "Segments",
                       "cigar_segments", "cigar_band",
-                      "cigar_rle", "cigar_strings")),
+                      "cigar_rle", "cigar_strings", "_emitdm_lib", "_i32",
+                      "EmitDm")),
     ("utils.simulate", ()),
     ("graph.clip", ()),
     ("graph.stringgraph", ()),
