@@ -281,7 +281,8 @@ def cigar_stats(pairs, new_cigars, score):
     return out
 
 
-def refine_batch(dp, key, pairs, cigars, quals, *, W_base, device, **costs):
+def refine_batch(dp, key, pairs, cigars, quals, *, W_base, device,
+                 counts=None, **costs):
     """One refine batch through the DP function `dp` (refine_banded_affine,
     or refine5q_banded with quals): pad the pairs to a power-of-two LA,
     build the band around the prior CIGARs at the batch's tier, run the DP
@@ -289,7 +290,9 @@ def refine_batch(dp, key, pairs, cigars, quals, *, W_base, device, **costs):
     the reference's outputs, in the order of pairs.  quals: per pair a
     [7, len(a)] u8 track array, of which tracks 1, 2, 3, 5 and 6 become
     the DP's five track arguments.  The DP with its fetch is a span named
-    `key`, beside the spans `band` and `rle`.
+    `key` (count `cells`: its band cells, Σ alen x W), beside the spans
+    `band` and `rle`.  counts: a span's counts, to which the batch adds
+    its `cells`.
 
     The band width is the whole batch's tier; the DP runs in calls of one
     pow2_tier under DIRS_CAP (ops/align.py tier_chunks): a pair's result
@@ -297,6 +300,9 @@ def refine_batch(dp, key, pairs, cigars, quals, *, W_base, device, **costs):
     if not pairs:
         return []
     W = band_tier(cigars, W_base)
+    if counts is not None:
+        counts["cells"] = counts.get("cells", 0) + W * sum(
+            len(a) for a, _ in pairs)
     out = [None] * len(pairs)
     for idx, LA in tier_chunks([len(a) for a, _ in pairs], plane_fits(W),
                                tier=pow2_tier):
@@ -327,7 +333,7 @@ def _refine_call(dp, key, pairs, cigars, quals, *, LA, W, device, **costs):
         tracks = tuple(qv)
     with span("band"):
         base = band_from_cigar(cigars, alens, blens, LA, W)
-    with span(key):
+    with span(key, cells=int(alens.sum()) * W):
         score, _dirs, mvs = dp(
             *(torch.from_numpy(x).to(device)
               for x in (a, b, *tracks, alens, blens, base)),
@@ -344,7 +350,8 @@ def _refine_call(dp, key, pairs, cigars, quals, *, LA, W, device, **costs):
 
 def refine_alignment_batch(pairs, cigars, *, W_base: int = 64, match: int = 2,
                            mismatch: int = -5, open_i: int = -3,
-                           open_d: int = -3, ext: int = -1, device="cuda"):
+                           open_d: int = -3, ext: int = -1, device="cuda",
+                           counts=None):
     """Refine a batch of alignments around their prior CIGARs on `device`.
 
     pairs: list of (a_codes, b_codes) numpy uint8 arrays (already
@@ -352,9 +359,10 @@ def refine_alignment_batch(pairs, cigars, *, W_base: int = 64, match: int = 2,
     cigars: list of (ops, counts) prior CIGARs in the same coordinates.
 
     Returns list of dicts: {score, ops, counts, mat, mis, ins, dl, aln}.
-    Mirrors kswx_refine_alignment's outputs (kswx.h:633-657).
+    Mirrors kswx_refine_alignment's outputs (kswx.h:633-657).  counts: as
+    `refine_batch`'s.
     """
     return refine_batch(refine_banded_affine, "refine", pairs, cigars, None,
-                        W_base=W_base, device=device,
+                        W_base=W_base, device=device, counts=counts,
                         match=match, mismatch=mismatch, open_i=open_i,
                         open_d=open_d, ext=ext)

@@ -130,7 +130,7 @@ def refine5q_banded_plain(a, b, subqv, insqv, delqv, subtag, deltag, alen,
 def refine5q_alignment_batch(pairs, quals, cigars, *, W_base: int = 64,
                              qclp: int = QCLP, qmis: int = QMIS,
                              qdel: int = QDEL, qext: int = QEXT,
-                             device="cuda"):
+                             device="cuda", counts=None):
     """Quality-aware refine of a batch of alignments around prior CIGARs,
     on `device`.
 
@@ -140,8 +140,8 @@ def refine5q_alignment_batch(pairs, quals, cigars, *, W_base: int = 64,
     cigars: list of (ops, counts) prior CIGARs ('I' consumes a).
 
     Returns list of dicts {score, ops, counts, mat, mis, ins, dl, aln}
-    mirroring ops.refine.refine_alignment_batch.
+    mirroring ops.refine.refine_alignment_batch; counts as its.
     """
     return refine_batch(refine5q_banded, "refine5q", pairs, cigars, quals,
-                        W_base=W_base, device=device, qclp=qclp,
-                        qmis=qmis, qdel=qdel, qext=qext)
+                        W_base=W_base, device=device, counts=counts,
+                        qclp=qclp, qmis=qmis, qdel=qdel, qext=qext)

@@ -311,8 +311,12 @@ def _align_pass(unit: LayUnitig, offs, cns, p: CnsParams, ga: int, gb: int,
     ra = read, rb = consensus.  Applies the affine refine pass when
     p.refine (reference kswx_refine_alignment, wtcns.c:372-381); reads
     with f5q tracks get the quality-aware refine (wtcns.c:380).  The JAX
-    package's pass, with the traceback inside the DP's call; its parts
-    are spans of the caller's span (`strings` one a batch).
+    package's pass, with the traceback inside the DP's call.  Each batch
+    is four spans of the caller's span: `cns.probe` (the anchoring),
+    `cns.banded` (the banded stage and its runs; counts `reads`, `cells`
+    Σ alen × band), `cns.refine` (both refine groups: the band, the
+    track packing, the DP and its decoding; counts `reads`, `reads_5q`,
+    `cells` Σ alen × W) and `cns.strings`.
     """
     nreads = len(unit.reads)
     for b0 in range(0, nreads, p.batch_reads):
@@ -328,61 +332,70 @@ def _align_pass(unit: LayUnitig, offs, cns, p: CnsParams, ga: int, gb: int,
             wstarts.append(ws)
             windows.append(cns[ws:we])
         doffs = [offs[i] - ws for i, ws in zip(ridx, wstarts)]
-        with span("probe"):
+        with span("cns.probe"):
             anchors = _anchor_reads(reads, windows, p, doffs, device)
         segs = Segments.from_pairs(list(zip(reads, windows)))
         # one call at the batch's tier, the JAX package's LA: it sets the
         # traceback's length
         LA = _pad_tier(max(len(r) for r in reads))
-        res = banded_runs(segs, p.band, match=p.match, mismatch=p.mismatch,
-                          gap_a=ga, gap_b=gb, anchors=anchors,
-                          tier=lambda _n: LA, device=device)
-        score, b_begs, end_col = res.score, res.b_beg, res.end_col
-        cigs = run_lists(res.ops, res.counts, res.run_beg, res.run_end)
+        with span("cns.banded", reads=len(ridx),
+                  cells=int(segs.alen.sum()) * p.band):
+            res = banded_runs(segs, p.band, match=p.match,
+                              mismatch=p.mismatch, gap_a=ga, gap_b=gb,
+                              anchors=anchors, tier=lambda _n: LA,
+                              device=device)
+            score, b_begs, end_col = res.score, res.b_beg, res.end_col
+            cigs = run_lists(res.ops, res.counts, res.run_beg, res.run_end)
         if p.refine:
             # affine re-alignment around the prior CIGAR (reference
             # kswx_refine_alignment, wtcns.c:372-381): canonical gap
-            # placement so DAG votes stack on the same columns; reads
-            # with f5q tracks get the quality-aware variant (wtcns.c:380)
-            groups: dict = {"plain": ([], [], []), "qv": ([], [], [])}
-            quals = unit.quals if (p.use_qv and unit.quals) else None
-            for i, (ops, counts) in enumerate(cigs):
-                if not ops:
-                    continue
-                seg_b = segs.cand(i)[int(b_begs[i]): int(end_col[i])]
-                if int(segs.alen[i]) == 0 or seg_b.size == 0:
-                    continue
-                qv = quals[ridx[i]] if quals is not None else None
-                g = groups["qv" if qv is not None else "plain"]
-                g[0].append((segs.query(i), seg_b))
-                g[1].append((ops, counts) if qv is None else
-                            ((ops, counts), qv))
-                g[2].append(i)
-            rpairs, rcigs, rmap = groups["plain"]
-            # iteration-dependent refine opens (reference wtcns.c:381:
-            # iter? I : O for both the main align and the refine)
-            refined = refine_alignment_batch(
-                rpairs, rcigs, W_base=p.refine_w, match=p.match,
-                mismatch=p.mismatch, open_i=ga,
-                open_d=gb, ext=p.refine_ext, device=device)
-            for i, r in zip(rmap, refined):
-                cigs[i] = (r["ops"], r["counts"])
-                # the reference sorts DAG insertion by the REFINED affine
-                # score (wtcns.c:381 sets kswx from the refine result and
-                # :551 sorts by it) — report it, not the banded score
-                score[i] = r["score"]
-            qpairs, qmeta, qmap = groups["qv"]
-            if qpairs:
-                # the JAX package keeps the banded score of f5q reads (its
-                # known fault, ROADMAP queue 3); copied, to stay equal
-                refined = refine5q_alignment_batch(
-                    qpairs, [m[1] for m in qmeta], [m[0] for m in qmeta],
-                    W_base=p.refine_w, device=device)
-                for i, r in zip(qmap, refined):
+            # placement so DAG votes stack on the same columns; reads with
+            # f5q tracks get the quality-aware variant (wtcns.c:380)
+            with span("cns.refine", cells=0) as sp_ref:
+                groups: dict = {"plain": ([], [], []), "qv": ([], [], [])}
+                quals = unit.quals if (p.use_qv and unit.quals) else None
+                for i, (ops, counts) in enumerate(cigs):
+                    if not ops:
+                        continue
+                    seg_b = segs.cand(i)[int(b_begs[i]): int(end_col[i])]
+                    if int(segs.alen[i]) == 0 or seg_b.size == 0:
+                        continue
+                    qv = quals[ridx[i]] if quals is not None else None
+                    g = groups["qv" if qv is not None else "plain"]
+                    g[0].append((segs.query(i), seg_b))
+                    g[1].append((ops, counts) if qv is None else
+                                ((ops, counts), qv))
+                    g[2].append(i)
+                rpairs, rcigs, rmap = groups["plain"]
+                qpairs, qmeta, qmap = groups["qv"]
+                sp_ref.counts.update(reads=len(rpairs) + len(qpairs),
+                                     reads_5q=len(qpairs))
+                # iteration-dependent refine opens (reference wtcns.c:381:
+                # iter? I : O for both the main align and the refine)
+                refined = refine_alignment_batch(
+                    rpairs, rcigs, W_base=p.refine_w, match=p.match,
+                    mismatch=p.mismatch, open_i=ga, open_d=gb,
+                    ext=p.refine_ext, device=device, counts=sp_ref.counts)
+                for i, r in zip(rmap, refined):
                     cigs[i] = (r["ops"], r["counts"])
+                    # the reference sorts DAG insertion by the REFINED
+                    # affine score (wtcns.c:381 sets kswx from the refine
+                    # result and :551 sorts by it) — report it, not the
+                    # banded score
+                    score[i] = r["score"]
+                if qpairs:
+                    # the JAX package keeps the banded score of f5q reads
+                    # (its known fault, ROADMAP queue 3); copied, to stay
+                    # equal
+                    refined = refine5q_alignment_batch(
+                        qpairs, [m[1] for m in qmeta], [m[0] for m in qmeta],
+                        W_base=p.refine_w, device=device,
+                        counts=sp_ref.counts)
+                    for i, r in zip(qmap, refined):
+                        cigs[i] = (r["ops"], r["counts"])
         # build alignment strings: row a = read, row b = window
         out = []
-        with span("strings"):
+        with span("cns.strings"):
             for i, (ops, counts) in enumerate(cigs):
                 ra, rb_ = align_strings(segs.query(i),
                                         segs.cand(i)[int(b_begs[i]):], ops,
@@ -776,7 +789,7 @@ def _load_colmaps(cm) -> list:
 
 def consensus_unitig(unit: LayUnitig, p: CnsParams | None = None,
                      return_offs: bool = False, ckpt: str | None = None, *,
-                     device="cuda"):
+                     device="cuda", first_round: list | None = None):
     """Iterative DAG consensus for one unitig; returns consensus codes
     (and the final read offsets when return_offs).
 
@@ -784,15 +797,18 @@ def consensus_unitig(unit: LayUnitig, p: CnsParams | None = None,
     resumes at the next iteration instead of restarting — genome-scale
     failure recovery (SURVEY §5.3).
     It takes the JAX package's checkpoints as well.  device: where the
-    probe anchoring and the DPs run.
+    probe anchoring and the DPs run.  first_round: a list to which the
+    first round's alignments, as the align pass yields them (rid, score,
+    beg, end, read row, consensus row), are appended; a run resumed past
+    that round appends none.
     """
     with span("cns.unitig", rounds=0) as sp_unit:
         return _unitig_rounds(unit, p or CnsParams(), return_offs, ckpt,
-                              device, sp_unit)
+                              device, sp_unit, first_round)
 
 
 def _unitig_rounds(unit: LayUnitig, p: CnsParams, return_offs, ckpt,
-                   device, sp_unit):
+                   device, sp_unit, first_round):
     """consensus_unitig inside its `cns.unitig` span `sp_unit`; each round
     is a `cns.round` span of seed, align and dag spans."""
     import os
@@ -851,8 +867,11 @@ def _unitig_rounds(unit: LayUnitig, p: CnsParams, return_offs, ckpt,
                        if use_seg else
                        _align_pass(unit, offs, cns, p, ga, gb, device=device))
                 aligned = 0
+                keep = first_round if it == 0 else None
                 for rid, sc, beg, end, ra, rb_ in itr:
                     aligned += 1
+                    if keep is not None:
+                        keep.append((rid, sc, beg, end, ra, rb_))
                     m = int(np.sum((ra == rb_) & (ra != 4)))
                     # reference acceptance (wtcns.c:347-357): mat >= min_id
                     # * aln AND mat >= min_id * projected read overlap — the
